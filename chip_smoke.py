@@ -1,0 +1,473 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (ray_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Builds every CUDA kernel of the port from the sources in this checkout, then
+drives the port's serving path on llama3-1b at full width (d_model 2048,
+16 layers, 32 heads / 8 KV heads, d_ff 8192, vocab 128,256, tied
+embeddings; random weights from --seed), one JSON line per phase:
+
+  build     nvcc for every csrc/*.cu
+  device    the card, its count and power limit
+  kernels   each kernel against its plain PyTorch version at the main
+            path's shapes and more: errors beside tolerances, kernel / plain
+            / PyTorch-library times (CUDA events) and the card's bound
+  forward   forward(params, tokens[4, 2048]) in bf16 through the flash
+            kernel (launches counted), against plain attention and the
+            fp32 forward
+  engine    InferenceEngine in fp32 (no TF32), token for token against the
+            port's own generate()
+  serving   InferenceEngine in bf16 at bench_serve.py's settings under
+            serve_forever: 8 client threads, 32 requests
+
+Then the kernel summary line, the card's nvidia-smi line, and as the last
+line {"ok": true, "device": {...}}. Any failure exits non-zero before that
+line. Without a CUDA device it exits non-zero at once.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import importlib
+import json
+import os
+import random
+import subprocess
+import sys
+import threading
+import time
+import traceback
+
+_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense): bf16 on the
+# tensor cores, fp32 outside them (the fp32 kernel uses no TF32), HBM rate.
+_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+_HBM_BYTES_PER_S = 3.35e12
+
+# The kernel against its plain version: flash_attention.check_fwd, whose
+# per-element bound on O follows each output's size (P rounded to bf16,
+# O rounded to bf16) and whose LSE bound is 2e-4 + 2e-4 |lse|.
+# Forward through the kernel vs through plain attention, as a relative
+# distance of the logits: the two differ by the kernel's rounding (P in
+# bf16, fp32 sums in another order) in each of 16 layers.
+_FWD_REL_TOL = 1e-2
+# The bf16 forward through the kernel may be at most 2% further from the
+# fp32 forward than the plain-attention bf16 forward is (measured on the
+# H100: 1.0045 times as far).
+_FWD_BF16_RATIO = 1.02
+
+
+def _emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def _nvidia_smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of fn() over ``iters`` calls, by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _flash_bound(bh, t, t_k, d, dtype_name, causal):
+    """(bound_ms, bound_by, flops, bytes) of one flash forward: QK^T and PV
+    over the (q, k) pairs this mask keeps, against each input read once and
+    each output written once."""
+    if causal:
+        pairs = sum(min(q + 1, t_k) for q in range(t))
+    else:
+        pairs = t * t_k
+    flops = 4.0 * d * bh * pairs
+    elt = 2 if dtype_name == "bfloat16" else 4
+    nbytes = elt * d * bh * (2 * t + 2 * t_k) + 4 * bh * t
+    t_ops = flops / _PEAK_FLOPS[dtype_name]
+    t_mem = nbytes / _HBM_BYTES_PER_S
+    return (max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem
+            else "bytes", flops, nbytes)
+
+
+def phase_kernels(fa, seed: int):
+    """B1 against its plain version at the forward's shape and four more."""
+    import torch
+    import torch.nn.functional as F
+
+    cases = [
+        # name, bh, t, d, dtype, causal
+        ("main", 128, 2048, 64, torch.bfloat16, True),  # llama3-1b forward
+        ("d128", 64, 2048, 128, torch.bfloat16, True),
+        ("noncausal", 96, 512, 64, torch.bfloat16, False),  # bert-base-like
+        ("fp32", 32, 1024, 128, torch.float32, True),
+        ("ragged_t48", 128, 48, 64, torch.bfloat16, True),
+    ]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for name, bh, t, d, dtype, causal in cases:
+        q, k, v = (torch.randn(bh, t, d, generator=g, device="cuda",
+                               dtype=torch.float32).to(dtype)
+                   for _ in range(3))
+        scale = d ** -0.5
+        o, lse = fa.flash_attention_fwd(q, k, v, scale=scale, causal=causal)
+        check = fa.check_fwd(o, lse, q, k, v, scale=scale, causal=causal)
+        dn = str(dtype).split(".")[-1]
+        iters = 20 if t >= 512 else 100
+        ms = _time_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, scale=scale, causal=causal), iters)
+        plain_ms = _time_ms(lambda: fa.flash_attention_fwd_reference(
+            q, k, v, scale=scale, causal=causal), max(3, iters // 5), 1)
+        # measurement only: the port never calls PyTorch's fused attention
+        q4, k4, v4 = q[None], k[None], v[None]  # [1, BH, T, D]: SDPA's layout
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal, scale=scale), iters)
+        bound_ms, bound_by, flops, nbytes = _flash_bound(
+            bh, t, t, d, dn, causal)
+        row = {"case": name, "shape": [bh, t, d], "dtype": dn,
+               "causal": causal, **check, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+               "bytes": nbytes, "tflops_per_s": flops / ms / 1e9}
+        rows.append(row)
+        del q, k, v, q4, k4, v4, o, lse
+        torch.cuda.empty_cache()
+    _emit({"phase": "kernels", "kernel": "flash_fwd", "cases": rows})
+    bad = [r["case"] for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"flash_fwd disagrees with its plain version: "
+                             f"{bad}")
+    return rows
+
+
+def _rel(x, ref) -> float:
+    return ((x - ref).norm() / ref.norm()).item()
+
+
+def phase_forward(fa, T, cfg, params, p32, seed: int):
+    """The main path: forward at [4, 2048] in bf16 through the kernel (its
+    launches counted), held against plain attention two ways:
+      - fp32: the same forward in fp32 through the kernel against fp32
+        plain attention, within _FWD_REL_TOL;
+      - bf16: both bf16 forwards against the fp32 one; the kernel's forward
+        may be at most _FWD_BF16_RATIO times as far from it as the
+        plain-attention forward is.
+    A direct bf16-vs-bf16 bound cannot hold: this random-weight model is
+    chaotic in bf16. Measured on the H100 with P.V made exact to fp32 in
+    the kernel, the two bf16 forwards still differed by 2.5%, while each
+    kept 3.05% from the fp32 forward (printed as rel_bf16_*)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 2048), generator=g,
+                           device="cuda", dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    logits = T.forward(params, tokens, cfg)
+    torch.cuda.synchronize()
+    launches = fa.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != cfg.n_layers:
+        raise AssertionError(f"forward launched flash_fwd {launches} times, "
+                             f"want {cfg.n_layers} (one per layer)")
+    finite = bool(torch.isfinite(logits).all())
+    plain_cfg = dataclasses.replace(cfg, attention_impl="xla")
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                param_dtype=torch.float32)
+    plain32_cfg = dataclasses.replace(cfg32, attention_impl="xla")
+    ref = T.forward(params, tokens, plain_cfg)
+    truth = T.forward(p32, tokens, plain32_cfg)
+    rel_bf16 = {"kernel_vs_fp32": _rel(logits, truth),
+                "plain_vs_fp32": _rel(ref, truth),
+                "kernel_vs_plain": _rel(logits, ref)}
+    del ref
+    rel_fp32 = _rel(T.forward(p32, tokens, cfg32), truth)
+    del truth
+    ms = _time_ms(lambda: T.forward(params, tokens, cfg), 3, 1)
+    plain_ms = _time_ms(lambda: T.forward(params, tokens, plain_cfg), 3, 1)
+    ratio = rel_bf16["kernel_vs_fp32"] / rel_bf16["plain_vs_fp32"]
+    ok = finite and rel_fp32 <= _FWD_REL_TOL and ratio <= _FWD_BF16_RATIO
+    _emit({"phase": "forward", "tokens": [4, 2048], "dtype": "bfloat16",
+           "attention_impl": "auto", "flash_launches": launches,
+           "logits_shape": list(logits.shape), "finite": finite,
+           "rel_fp32_kernel_vs_plain": rel_fp32, "rel_tol": _FWD_REL_TOL,
+           **{f"rel_bf16_{k}": v for k, v in rel_bf16.items()},
+           "bf16_kernel_over_plain": ratio,
+           "bf16_ratio_tol": _FWD_BF16_RATIO,
+           "ok": ok, "ms": ms, "plain_attention_ms": plain_ms,
+           "tokens_per_s": 4 * 2048 / ms * 1e3,
+           "peak_mem_gib": peak / 2**30})
+    if not ok:
+        raise AssertionError("forward through the kernel disagrees with "
+                             "plain attention")
+    return launches
+
+
+def phase_engine_fp32(E, G, cfg, p32, seed: int):
+    """The fp32 engine token for token against the port's generate()."""
+    import torch
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                param_dtype=torch.float32)
+    rng = random.Random(seed)
+    prompts = [[rng.randint(1, cfg.vocab_size - 1) for _ in range(n)]
+               for n in (5, 17, 40, 64)]
+    want = [G.generate(p32, torch.tensor([p], device="cuda"), cfg32,
+                       max_new_tokens=32)[0, len(p):].tolist()
+            for p in prompts]
+    eng = E.InferenceEngine(p32, cfg32, slots=8, max_prompt_len=64,
+                            max_new_tokens=32, greedy=True, seed=seed)
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p) for p in prompts]
+    for _ in range(1000):
+        if all(r.done.is_set() for r in reqs):
+            break
+        eng.step()
+    wall = time.perf_counter() - t0
+    got = [list(r.tokens) for r in reqs]
+    match = [a == b for a, b in zip(got, want)]
+    _emit({"phase": "engine", "dtype": "float32", "tf32": False,
+           "prompt_lens": [len(p) for p in prompts], "max_new_tokens": 32,
+           "match_generate": match, "wall_s": wall,
+           "first_mismatch": next(
+               ([i, [j for j, (x, y) in enumerate(zip(a, b)) if x != y][:1]]
+                for i, (a, b) in enumerate(zip(got, want)) if a != b), None)})
+    if not all(match):
+        raise AssertionError("fp32 engine tokens differ from generate()")
+
+
+def _workload(rng_seed: int, max_prompt: int, max_new: int):
+    """bench_serve.py's request stream: (prompt, max_new). 80% short answers
+    (U[max/16, max/4]) and 20% long generations (U[max/2, max])."""
+    rng = random.Random(rng_seed)
+
+    def next_request():
+        plen = rng.randint(max(4, max_prompt // 8), max_prompt)
+        if rng.random() < 0.8:
+            want = rng.randint(max(2, max_new // 16), max(4, max_new // 4))
+        else:
+            want = rng.randint(max_new // 2, max_new)
+        return [rng.randint(1, 200) for _ in range(plen)], want
+    return next_request
+
+
+def _pct(xs, p):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(p / 100 * len(xs)))]
+
+
+def _decode_chunk_profile(E, eng, cfg, steps: int):
+    """Host wall and device busy time of one full-width decode chunk: the
+    wall without the profiler, the device time (sum of kernel times) from
+    torch.profiler; "not measured" if the profiler sees no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    active = torch.ones(eng.slots, dtype=torch.bool, device="cuda")
+
+    def chunk():
+        E.decode_slots(eng.params, eng.cache, eng._next_tok_dev, active,
+                       eng._rng, cfg, True, 1.0, -1, steps=steps)
+        torch.cuda.synchronize()
+
+    chunk()
+    t0 = time.perf_counter()
+    chunk()
+    wall = time.perf_counter() - t0
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            chunk()
+        dev_us = sum(e.device_time_total for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA)
+    except Exception:  # the profiler is a probe here, not a phase
+        traceback.print_exc()
+        dev_us = 0
+    eng.cache["pos"].zero_()
+    return {"steps": steps, "host_ms_per_step": wall / steps * 1e3,
+            "device_ms_per_step": (dev_us / steps / 1e3 if dev_us
+                                   else "not measured"),
+            "device_busy_share": (dev_us / 1e6 / wall if dev_us
+                                  else "not measured")}
+
+
+def phase_serving(E, cfg, params, seed: int):
+    """bf16 engine at bench_serve.py's settings, 8 clients x 4 requests."""
+    import torch
+
+    clients, per_client, max_new = 8, 4, 64
+    eng = E.InferenceEngine(params, cfg, slots=8, max_prompt_len=64,
+                            max_new_tokens=max_new, decode_chunk=16,
+                            fetch_every=4, max_inflight=6, seed=seed)
+    eng.warmup()
+    torch.cuda.reset_peak_memory_stats()
+    eng.serve_forever()
+    results, errors, lock = [], [], threading.Lock()
+
+    def client(cid):
+        nxt = _workload(seed + 17 + cid, 64, max_new)
+        try:
+            for _ in range(per_client):
+                prompt, want = nxt()
+                t0 = time.perf_counter()
+                ttft, toks = None, []
+                for tok in eng.submit_stream(prompt, want):
+                    if ttft is None:
+                        ttft = time.perf_counter() - t0
+                    toks.append(tok)
+                with lock:
+                    results.append((want, toks, ttft,
+                                    time.perf_counter() - t0))
+        except BaseException as e:  # reported below, fails the phase
+            with lock:
+                errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(clients)]
+    t0 = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        hung = sum(t.is_alive() for t in threads)
+    finally:
+        eng.shutdown()
+    n_tok = sum(len(r[1]) for r in results)
+    bad_len = sum(len(toks) != want for want, toks, _, _ in results)
+    bad_vocab = sum(any(not 0 <= x < cfg.vocab_size for x in toks)
+                    for _, toks, _, _ in results)
+    lat = [r[3] for r in results]
+    ttft = [r[2] for r in results if r[2] is not None]
+    _emit({"phase": "serving", "dtype": "bfloat16", "clients": clients,
+           "requests": len(results), "want_requests": clients * per_client,
+           "errors": errors, "hung_clients": hung,
+           "wrong_length": bad_len, "out_of_vocab": bad_vocab,
+           "generated_tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall,
+           "latency_p50_s": _pct(lat, 50) if lat else None,
+           "latency_p95_s": _pct(lat, 95) if lat else None,
+           "ttft_p50_s": _pct(ttft, 50) if ttft else None,
+           "ttft_p95_s": _pct(ttft, 95) if ttft else None,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "engine_stats": eng.stats,
+           "decode_chunk": _decode_chunk_profile(E, eng, cfg, 16)})
+    if errors or hung or bad_len or bad_vocab or \
+            len(results) != clients * per_client:
+        raise AssertionError("serving phase failed")
+
+
+def run(seed: int) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, _ROOT)
+    try:
+        from ray_tpu_torch.ops import _build
+    except ImportError as e:
+        print(f"chip_smoke: the ray_tpu_torch package is not beside this "
+              f"script ({e})", file=sys.stderr)
+        return 2
+    from ray_tpu_torch.models import config as C
+    from ray_tpu_torch.models import engine as E
+    from ray_tpu_torch.models import generate as G
+    from ray_tpu_torch.models import transformer as T
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+
+    # fp32 matmuls and convolutions in full fp32: no TF32 anywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    libs = {n: _build.load(n)._name for n in _build.sources()}
+    _emit({"phase": "build", "seconds": time.perf_counter() - t0,
+           "libraries": {n: os.path.relpath(p, _ROOT)
+                         for n, p in libs.items()},
+           "ptxas": {n: [ln.strip() for ln in _build.build_log(n).splitlines()
+                         if "registers" in ln or "spill" in ln]
+                     for n in libs}})
+
+    smi = _nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    _emit({"phase": "device", "kind": kind, "count": count,
+           "nvidia_smi": smi, "torch": torch.__version__,
+           "cuda": torch.version.cuda})
+
+    failed = []
+
+    def attempt(name, fn, *args):
+        # a failed phase is reported and the later phases still run, so one
+        # run shows every fault; the script then exits non-zero
+        try:
+            return fn(*args)
+        except Exception:
+            traceback.print_exc()
+            failed.append(name)
+            return None
+
+    rows = attempt("kernels", phase_kernels, fa, seed)
+
+    cfg = C.get_config("llama3-1b", param_dtype=torch.bfloat16)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(seed),
+                           cfg, device="cuda")
+    # the same weights in fp32 (bf16 values are exact in fp32)
+    p32 = {"embed": params["embed"].float(),
+           "final_norm": params["final_norm"].float(),
+           "layers": {k: w.float() for k, w in params["layers"].items()}}
+    launches = attempt("forward", phase_forward, fa, T, cfg, params, p32,
+                       seed)
+    attempt("engine", phase_engine_fp32, E, G, cfg, p32, seed)
+    del p32
+    torch.cuda.empty_cache()
+    attempt("serving", phase_serving, E, cfg, params, seed)
+    if failed:
+        print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
+        return 1
+
+    main = next(r for r in rows if r["case"] == "main")
+    _emit({"kernels": [{
+        "name": "flash_fwd", "route": "cuda",
+        "source": "ray_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "ray_tpu/ops/flash_attention.py:35",
+        "launches": launches, "max_abs_err": main["o_max_abs_err"],
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"]}]})
+    print(smi, flush=True)
+    _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                  "count": count}})
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    try:
+        return run(args.seed)
+    except Exception:
+        traceback.print_exc()
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,36 @@
+"""Built-in model family of the port: the Llama-style decoder's inference stack.
+
+Mirrors ``ray_tpu/models/__init__.py`` for what is ported: configs, the
+forward and loss, KV-cache generation and the continuous-batching engine.
+Training, MoE and the MLM helpers are later slices (ROADMAP.md).
+"""
+
+from ray_tpu_torch.models.config import (
+    PRESETS,
+    TransformerConfig,
+    bert_base_config,
+    get_config,
+    gpt2_small_config,
+    llama3_1b_config,
+    llama3_8b_config,
+    llama3_70b_config,
+    tiny_config,
+)
+# NOTE: generate() itself is not re-exported, as in the reference: it would
+# shadow the ray_tpu_torch.models.generate submodule.
+from ray_tpu_torch.models.generate import decode_step, init_cache, prefill
+from ray_tpu_torch.models.engine import InferenceEngine
+from ray_tpu_torch.models.transformer import (
+    Transformer,
+    forward,
+    init_params,
+    loss_fn,
+)
+
+__all__ = [
+    "TransformerConfig", "get_config", "PRESETS", "tiny_config",
+    "gpt2_small_config", "llama3_1b_config", "llama3_8b_config",
+    "llama3_70b_config", "bert_base_config",
+    "forward", "init_params", "loss_fn", "Transformer",
+    "prefill", "decode_step", "init_cache", "InferenceEngine",
+]

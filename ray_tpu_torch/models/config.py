@@ -1,0 +1,149 @@
+"""Model configurations: the port of ``ray_tpu/models/config.py``.
+
+The same dataclass, presets and parameter arithmetic, with torch dtypes.
+Mixture-of-Experts configs are refused until MoE is ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """A Llama-3-style decoder-only transformer (RMSNorm, RoPE, GQA, SwiGLU)."""
+
+    vocab_size: int = 32000
+    d_model: int = 512
+    n_layers: int = 4
+    n_heads: int = 8
+    n_kv_heads: Optional[int] = None  # None -> MHA
+    d_ff: int = 1408
+    max_seq_len: int = 2048
+    rope_theta: float = 500_000.0
+    rms_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16        # activation/compute dtype
+    param_dtype: torch.dtype = torch.float32   # master weights
+    tie_embeddings: bool = False
+    # False -> bidirectional (encoder / BERT-class) attention.
+    causal: bool = True
+    # Checkpoint each layer in training; the inference slice does not read it.
+    remat: bool = True
+    remat_policy: str = "nothing"
+    # "auto": the flash kernel for CUDA tensors, plain attention for CPU
+    # tensors; "pallas": the flash op (its plain version on the CPU);
+    # "xla": plain attention; "ring": not ported yet.
+    attention_impl: str = "auto"
+    pipeline_microbatches: Optional[int] = None
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+
+    def __post_init__(self):
+        if self.moe_experts:
+            raise NotImplementedError(
+                "Mixture-of-Experts (moe_experts > 0) is not ported yet: "
+                "ROADMAP.md queue A, 'MoE FFN (ray_tpu/models/moe.py)'")
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    @property
+    def head_dim(self) -> int:
+        if self.d_model % self.n_heads:
+            raise ValueError(f"d_model={self.d_model} is not a multiple of "
+                             f"n_heads={self.n_heads}")
+        return self.d_model // self.n_heads
+
+    @property
+    def num_params(self) -> int:
+        d, v, L = self.d_model, self.vocab_size, self.n_layers
+        hd, H, KV, ff = self.head_dim, self.n_heads, self.kv_heads, self.d_ff
+        per_layer = (d * H * hd + 2 * d * KV * hd + H * hd * d  # attn
+                     + 3 * d * ff                               # swiglu
+                     + 2 * d)                                   # norms
+        head = 0 if self.tie_embeddings else d * v
+        return v * d + L * per_layer + d + head
+
+    def flops_per_token(self, seq_len: Optional[int] = None) -> float:
+        """Approximate training FLOPs/token: 6*N + attention quadratic term."""
+        s = seq_len or self.max_seq_len
+        attn = 12 * self.n_layers * self.d_model * s  # fwd+bwd qk^T and av
+        return 6.0 * self.num_params + attn
+
+
+# ---- presets ---------------------------------------------------------------
+
+def tiny_config(**kw) -> TransformerConfig:
+    """Unit-test sized; runs in milliseconds on CPU."""
+    base = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
+                n_kv_heads=2, d_ff=128, max_seq_len=128,
+                dtype=torch.float32, remat=False)
+    base.update(kw)
+    return TransformerConfig(**base)
+
+
+def gpt2_small_config(**kw) -> TransformerConfig:
+    """124M-class decoder (GPT-2-small scale, modern Llama-style blocks)."""
+    base = dict(vocab_size=50304, d_model=768, n_layers=12, n_heads=12,
+                n_kv_heads=12, d_ff=3072, max_seq_len=1024,
+                tie_embeddings=True)
+    base.update(kw)
+    return TransformerConfig(**base)
+
+
+def llama3_1b_config(**kw) -> TransformerConfig:
+    """~1.2B-param Llama-3.2-1B-class geometry; single-chip serving flagship."""
+    base = dict(vocab_size=128_256, d_model=2048, n_layers=16, n_heads=32,
+                n_kv_heads=8, d_ff=8192, max_seq_len=4096,
+                rope_theta=500_000.0, tie_embeddings=True)
+    base.update(kw)
+    return TransformerConfig(**base)
+
+
+def llama3_8b_config(**kw) -> TransformerConfig:
+    """Llama-3-8B geometry."""
+    base = dict(vocab_size=128_256, d_model=4096, n_layers=32, n_heads=32,
+                n_kv_heads=8, d_ff=14336, max_seq_len=8192,
+                rope_theta=500_000.0)
+    base.update(kw)
+    return TransformerConfig(**base)
+
+
+def llama3_70b_config(**kw) -> TransformerConfig:
+    base = dict(vocab_size=128_256, d_model=8192, n_layers=80, n_heads=64,
+                n_kv_heads=8, d_ff=28672, max_seq_len=8192)
+    base.update(kw)
+    return TransformerConfig(**base)
+
+
+def bert_base_config(**kw) -> TransformerConfig:
+    """BERT-base-scale bidirectional encoder (110M class): the decoder's
+    blocks with ``causal=False``; d_ff=2048 keeps the 3-matrix SwiGLU at
+    BERT's 2-matrix-GELU parameter budget."""
+    base = dict(vocab_size=30_522, d_model=768, n_layers=12, n_heads=12,
+                d_ff=2048, max_seq_len=512, causal=False,
+                tie_embeddings=True)
+    base.update(kw)
+    return TransformerConfig(**base)
+
+
+PRESETS = {
+    "tiny": tiny_config,
+    "bert-base": bert_base_config,
+    "gpt2-small": gpt2_small_config,
+    "llama3-1b": llama3_1b_config,
+    "llama3-8b": llama3_8b_config,
+    "llama3-70b": llama3_70b_config,
+}
+
+
+def get_config(name: str, **kw) -> TransformerConfig:
+    if name not in PRESETS:
+        raise KeyError(f"unknown model preset {name!r}; have {list(PRESETS)}")
+    return PRESETS[name](**kw)

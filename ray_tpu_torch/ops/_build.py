@@ -1,0 +1,85 @@
+"""Builds the port's CUDA sources with ``nvcc`` at first use and loads them.
+
+Each ``csrc/<name>.cu`` becomes ``.build/ray_tpu_torch/lib<name>-<hash>.so``
+in the checkout, keyed by the source's content hash, so an edited source is
+rebuilt and an unchanged one is loaded as it is. The libraries expose plain
+C functions (no PyTorch headers, which would cost minutes of ``nvcc`` per
+build) and are bound with ``ctypes``.
+
+Nothing here runs at import: only a wrapper handed a CUDA tensor, or a
+direct ``load()``, reaches ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / ".build" / "ray_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> List[str]:
+    return sorted(p.stem for p in _CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "from source and need the CUDA toolkit")
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _compile(name: str, out: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{proc.stdout}")
+    out.with_suffix(".log").write_text(proc.stdout)
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for the current build of ``csrc/<name>.cu``: ptxas'
+    registers, shared memory and spills of each kernel."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            out = _target(name)
+            if not out.exists():
+                _compile(name, out)
+            _libs[name] = ctypes.CDLL(str(out))
+        return _libs[name]
