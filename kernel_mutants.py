@@ -1,0 +1,153 @@
+#!/usr/bin/env python3
+"""Shows that the backward kernels' checks are not blind: deliberately
+broken copies of B2 and B3 must fail them, and the unbroken kernels must
+pass them with room to spare.
+
+    python3 kernel_mutants.py [--seed N] [--weight-seeds 0 1]
+                              [--batch-seeds 3 4]
+
+Two checks, each for the checkout's own kernels (the baseline) and for each
+mutant:
+
+  check_bwd   B2/B3 against their plain versions at the llama3-1b training
+              shape [B*H=128, T=2048, D=64] bf16 causal
+              (``flash_attention.check_bwd``);
+  train       chip_smoke.py's train check (a), ``chip_smoke.train_parity``:
+              one llama3-1b step (batch 4 x 2048, bf16, remat) through the
+              kernels and through plain attention, each against the fp32
+              step, kernel/plain within chip_smoke's _TRAIN_BF16_RATIO.
+
+The baseline's train check runs over every --weight-seeds x --batch-seeds
+pair: the spread of the plain bf16 step that the ratios are set from. Each
+mutant's runs at chip_smoke's own seeds (weight seed --seed, batch seed
+--seed + 3). The mutants, each one edit of ``csrc/flash_bwd.cu`` in a copy of
+``ray_tpu_torch`` in a temporary directory, built there with ``nvcc``:
+
+  b2_skip_k_tile   B2 leaves out K/V tile 1 (keys 64-127) for every query tile
+  b3_skip_q_tile   B3 leaves out the Q/dO tile at query 1024 for every key
+                   block
+
+One JSON line per check run. Exits non-zero unless both checks pass the
+baseline and refuse every mutant. Needs an NVIDIA GPU and nvcc; the
+checkout itself is not changed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
+_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# name -> (the source line it edits, the line put in its place)
+MUTANTS = {
+    "b2_skip_k_tile": (
+        "  for (int k0 = 0; k0 < k_end; k0 += kBN) {\n",
+        "  for (int k0 = 0; k0 < k_end; k0 += kBN) {\n"
+        "    if (k0 == kBN) continue;\n"),
+    "b3_skip_q_tile": (
+        "  for (int q0 = causal ? k0 : 0; q0 < t; q0 += kBM) {\n",
+        "  for (int q0 = causal ? k0 : 0; q0 < t; q0 += kBM) {\n"
+        "    if (q0 == 1024) continue;\n"),
+}
+
+# argv: package root, seed, weight seeds, batch seeds (JSON lists). The
+# package root comes first on sys.path, so ray_tpu_torch is the copy there;
+# chip_smoke is the checkout's.
+_PROBE = r"""
+import importlib, json, sys
+import torch
+import chip_smoke as cs
+fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+from ray_tpu_torch.models import config as C
+from ray_tpu_torch.models import training as TR
+from ray_tpu_torch.models import transformer as T
+assert fa.__file__.startswith(sys.argv[1]), fa.__file__
+seed = int(sys.argv[2])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+g = torch.Generator(device="cuda").manual_seed(seed)
+bh, t, d = 128, 2048, 64
+q, k, v, do = (torch.randn(bh, t, d, generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(4))
+scale = d ** -0.5
+o, lse = fa.flash_attention_fwd(q, k, v, scale=scale, causal=True)
+dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, scale=scale,
+                                    causal=True)
+torch.cuda.synchronize()
+check = fa.check_bwd(dq, dk, dv, q, k, v, o, lse, do, scale=scale,
+                     causal=True)
+print(json.dumps({"check": "check_bwd", **check}), flush=True)
+del q, k, v, do, o, lse, dq, dk, dv
+torch.cuda.empty_cache()
+
+cfg = cs.train_config(C)
+for ws in json.loads(sys.argv[3]):
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(ws),
+                           cfg, device="cuda")
+    for bs in json.loads(sys.argv[4]):
+        par = cs.train_parity(T, TR, cfg, params, cs.train_batch(cfg, bs))
+        print(json.dumps({"check": "train", "weight_seed": ws,
+                          "batch_seed": bs, **par}), flush=True)
+    del params
+    torch.cuda.empty_cache()
+"""
+
+
+def _probe(pkg_root: str, seed: int, weight_seeds, batch_seeds) -> list:
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE, pkg_root, str(seed),
+         json.dumps(weight_seeds), json.dumps(batch_seeds)],
+        cwd=pkg_root, capture_output=True, text=True, timeout=1200,
+        env={**os.environ, "PYTHONPATH": os.pathsep.join(
+            dict.fromkeys([pkg_root, _ROOT]))})
+    if out.returncode != 0:
+        raise RuntimeError(f"the probe in {pkg_root} failed:\n{out.stderr}")
+    return [json.loads(ln) for ln in out.stdout.splitlines()
+            if ln.startswith("{")]
+
+
+def run_mutant(name: str, seed: int) -> list:
+    """check_bwd and the train check of one mutant, built in a copy."""
+    old, new = MUTANTS[name]
+    with tempfile.TemporaryDirectory(prefix=f"mutant_{name}_") as tmp:
+        pkg = os.path.join(tmp, "ray_tpu_torch")
+        shutil.copytree(os.path.join(_ROOT, "ray_tpu_torch"), pkg,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        src = os.path.join(pkg, "csrc", "flash_bwd.cu")
+        text = open(src).read()
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}: the line to edit occurs "
+                               f"{text.count(old)} times in flash_bwd.cu")
+        with open(src, "w") as f:
+            f.write(text.replace(old, new))
+        return _probe(tmp, seed, [seed], [seed + 3])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--weight-seeds", type=int, nargs="+", default=[0, 1])
+    ap.add_argument("--batch-seeds", type=int, nargs="+", default=[3, 4])
+    args = ap.parse_args()
+    ok = True
+    runs = [("baseline", _probe(_ROOT, args.seed, args.weight_seeds,
+                                args.batch_seeds))]
+    runs += [(name, run_mutant(name, args.seed)) for name in MUTANTS]
+    for variant, rows in runs:
+        for row in rows:
+            refused = not row["ok"]
+            print(json.dumps({"variant": variant, "refused": refused, **row}),
+                  flush=True)
+            ok &= refused == (variant != "baseline")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,10 +1,11 @@
 """ray_tpu_torch: the PyTorch/CUDA port of ray_tpu's model stack, for NVIDIA Hopper.
 
 The JAX package ``ray_tpu`` stays the reference; this package imports
-nothing from it. What is ported so far is the decoder's inference stack
-(``models``) and the flash-attention forward kernel (``ops``), which runs as
-hand-written CUDA on the card and as its plain PyTorch version on CPU
-tensors. Entry points run on CUDA unless the caller passes ``device="cpu"``.
+nothing from it. What is ported so far is the decoder's inference and
+training stack (``models``) and the flash-attention kernels, forward and
+backward (``ops``), which run as hand-written CUDA on the card and as their
+plain PyTorch versions on CPU tensors. Entry points run on CUDA unless the
+caller passes ``device="cpu"``.
 """
 
 from ray_tpu_torch import models, ops

@@ -33,54 +33,11 @@
 // What it leaves for later: wgmma, TMA loads and a pipelined K/V ring with
 // warp specialisation; mma.sync alone cannot reach the card's peak.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;  // the Pallas kernel's masked score
-
 // ---------------------------------------------------------------- bf16 path
-
-constexpr int kBM = 64;    // query rows per block (16 per warp)
-constexpr int kBN = 64;    // keys per K/V tile
-constexpr int kPad = 8;    // bf16 elements of row padding: conflict-free fragments
-constexpr int kThreads = 128;
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo, low 16 bits
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// rows [row0, row0 + 64) of a [rows, D] bf16 matrix into shared memory with
-// row stride D + kPad; rows at or past `rows` are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int row0, int rows) {
-  constexpr int kVec = D / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < kBM * kVec; i += kThreads) {
-    int r = i / kVec, c = (i % kVec) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < rows)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) = val;
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -290,24 +247,15 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-constexpr int kMaxDevices = 64;
-
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         float* lse, int bh, int t, int t_k, int causal,
                         float scale, int device, cudaStream_t stream) {
+  // D = 128 needs more than the default 48 KB of dynamic shared memory
   const int smem = (kBM + 2 * kBN) * (D + kPad) * (int)sizeof(__nv_bfloat16);
-  // D = 128 needs more than the default 48 KB of dynamic shared memory; the
-  // attribute is set once per device (setting it twice is harmless, so
-  // racing threads need no lock)
   static bool smem_set[kMaxDevices];
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!smem_set[device]) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    smem_set[device] = true;
-  }
+  cudaError_t err = allow_smem(flash_fwd_bf16_kernel<D>, smem, device, smem_set);
+  if (err != cudaSuccess) return err;
   dim3 grid((t + kBM - 1) / kBM, bh);
   flash_fwd_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),

@@ -1,8 +1,10 @@
-"""Built-in model family of the port: the Llama-style decoder's inference stack.
+"""Built-in model family of the port: the Llama-style decoder.
 
 Mirrors ``ray_tpu/models/__init__.py`` for what is ported: configs, the
-forward and loss, KV-cache generation and the continuous-batching engine.
-Training, MoE and the MLM helpers are later slices (ROADMAP.md).
+forward and loss, the train step, KV-cache generation and the
+continuous-batching engine. MoE, the MLM helpers and the sharding helpers
+(``param_logical_axes``, ``state_shardings``, ``batch_sharding``) are later
+slices (ROADMAP.md).
 """
 
 from ray_tpu_torch.models.config import (
@@ -26,6 +28,12 @@ from ray_tpu_torch.models.transformer import (
     init_params,
     loss_fn,
 )
+from ray_tpu_torch.models.training import (
+    init_train_state,
+    make_eval_step,
+    make_optimizer,
+    make_train_step,
+)
 
 __all__ = [
     "TransformerConfig", "get_config", "PRESETS", "tiny_config",
@@ -33,4 +41,6 @@ __all__ = [
     "llama3_70b_config", "bert_base_config",
     "forward", "init_params", "loss_fn", "Transformer",
     "prefill", "decode_step", "init_cache", "InferenceEngine",
+    "make_optimizer", "make_train_step", "make_eval_step",
+    "init_train_state",
 ]

@@ -30,7 +30,8 @@ class TransformerConfig:
     tie_embeddings: bool = False
     # False -> bidirectional (encoder / BERT-class) attention.
     causal: bool = True
-    # Checkpoint each layer in training; the inference slice does not read it.
+    # Checkpoint each layer (torch.utils.checkpoint) when autograd is on.
+    # "nothing": rematerialize everything; "dots" is not ported yet.
     remat: bool = True
     remat_policy: str = "nothing"
     # "auto": the flash kernel for CUDA tensors, plain attention for CPU

@@ -1,0 +1,275 @@
+"""Train step: the port of ``ray_tpu/models/training.py``.
+
+The optimizer is the reference's optax chain, ``clip_by_global_norm`` then
+``adamw`` (``scale_by_adam``, ``add_decayed_weights`` on every leaf,
+``scale_by_learning_rate``), with an optional warmup-cosine schedule,
+written out as plain functions on tensors in the order and the dtypes that
+optax 0.2.6 computes in: a Python scalar is rounded to the tensor's dtype
+before it multiplies (JAX's weak typing), the update uses the first moment
+before it is cast to ``mu_dtype``, and the second moment keeps the param
+dtype. ``torch.optim.AdamW`` decays the params before its step, the same
+mathematics in another rounding order, which bf16 params would show.
+
+The train step updates params and moments in place under ``no_grad``,
+standing in for the reference's donated state. Sharded execution (``mesh``,
+``state_shardings``, ``batch_sharding``) waits for the parallel layer.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+from ray_tpu_torch.models.config import TransformerConfig
+from ray_tpu_torch.models.transformer import init_params, loss_fn
+
+TrainState = Dict[str, Any]  # {"step", "params", "opt_state"}
+OptState = Dict[str, Any]    # {"count": int32 [], "mu": tree, "nu": tree}
+Schedule = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded training (mesh, state_shardings, batch_sharding) is not "
+            "ported yet: ROADMAP.md, the parallel layer")
+
+
+# ---- trees -----------------------------------------------------------------
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The leaves in ``jax.tree.leaves`` order (dict keys sorted), which is
+    the order the global norm sums them in."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    return fn(tree, *rest)
+
+
+def _unflatten(like, leaves: List[torch.Tensor]):
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return build(like)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """``optax.global_norm``: sqrt of the sum over leaves of sum(x * x), each
+    in its leaf's dtype, added leaf by leaf."""
+    return torch.sqrt(sum((x * x).sum() for x in tree_leaves(tree)))
+
+
+def _scalar(x: float, dtype: torch.dtype) -> float:
+    """A Python scalar as JAX's weak typing makes it: rounded to ``dtype``."""
+    return torch.tensor(x, dtype=dtype).item()
+
+
+# ---- schedule --------------------------------------------------------------
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0) -> Schedule:
+    """``optax.warmup_cosine_decay_schedule`` on an fp32 count tensor: linear
+    from ``init_value`` to ``peak_value`` over ``warmup_steps``, then cosine
+    down to ``end_value`` at ``decay_steps``."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    cos_steps = decay_steps - warmup_steps
+    if cos_steps <= 0:
+        raise ValueError(f"the cosine part needs decay_steps > warmup_steps, "
+                         f"got {decay_steps} and {warmup_steps}")
+
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        c = count.to(torch.float32)
+        frac = 1 - torch.clamp(c, 0, warmup_steps) / warmup_steps
+        warm = (init_value - peak_value) * frac + peak_value
+        k = torch.clamp(c - warmup_steps, max=float(cos_steps))
+        cosine = 0.5 * (1 + torch.cos(math.pi * k / cos_steps))
+        decayed = peak_value * ((1 - alpha) * cosine + alpha)
+        return torch.where(c < warmup_steps, warm, decayed)
+
+    return schedule
+
+
+# ---- optimizer -------------------------------------------------------------
+
+class AdamW:
+    """``optax.chain(clip_by_global_norm(grad_clip), adamw(...))``.
+
+    ``init(params)`` -> state; ``update(grads, state, params)`` -> (updates,
+    new state), as optax's ``tx.update``; ``step_(grads, state, params)``
+    applies the same arithmetic in place and returns the raw grads' global
+    norm."""
+
+    def __init__(self, learning_rate, *, weight_decay: float, b1: float,
+                 b2: float, eps: float, grad_clip: float,
+                 mu_dtype: Optional[torch.dtype]):
+        self.learning_rate = learning_rate  # a float or a Schedule
+        self.weight_decay, self.b1, self.b2 = weight_decay, b1, b2
+        self.eps, self.grad_clip, self.mu_dtype = eps, grad_clip, mu_dtype
+
+    def init(self, params) -> OptState:
+        leaf = tree_leaves(params)[0]
+        return {"count": torch.zeros((), dtype=torch.int32,
+                                     device=leaf.device),
+                "mu": tree_map(lambda p: torch.zeros_like(
+                    p, dtype=self.mu_dtype or p.dtype), params),
+                "nu": tree_map(torch.zeros_like, params)}
+
+    def _scalars(self, state: OptState, g_norm: torch.Tensor):
+        """Per-step tensors: the clip's norm, the bias corrections for the
+        new count (fp32) and the learning rate (fp32, or a float)."""
+        count = state["count"]
+        c = (count + 1).to(torch.float32)
+        dev = count.device
+        bc1 = 1 - torch.tensor(self.b1, dtype=torch.float32, device=dev) ** c
+        bc2 = 1 - torch.tensor(self.b2, dtype=torch.float32, device=dev) ** c
+        lr = self.learning_rate
+        if callable(lr):  # scale_by_schedule reads the count before the step
+            lr = lr(count)
+        return g_norm, bc1, bc2, lr
+
+    def _leaf(self, g, mu, nu, p, scalars):
+        """One leaf through the chain -> (update, new mu, new nu)."""
+        g_norm, bc1, bc2, lr = scalars
+        dt = g.dtype
+        # clip_by_global_norm: scale only when the norm reaches max_norm
+        g = torch.where(g_norm < self.grad_clip, g,
+                        (g / g_norm.to(dt)) * _scalar(self.grad_clip, dt))
+        # scale_by_adam: moments, then bias correction in the moments' dtype
+        mu = (_scalar(1 - self.b1, dt) * g
+              + _scalar(self.b1, mu.dtype) * mu)
+        nu = (_scalar(1 - self.b2, dt) * (g * g)
+              + _scalar(self.b2, nu.dtype) * nu)
+        mu_hat = mu / bc1.to(mu.dtype)
+        nu_hat = nu / bc2.to(nu.dtype)
+        u = mu_hat / (torch.sqrt(nu_hat) + _scalar(self.eps, nu_hat.dtype))
+        if self.mu_dtype is not None:
+            mu = mu.to(self.mu_dtype)
+        # add_decayed_weights on every leaf (the reference passes no mask)
+        u = u + _scalar(self.weight_decay, p.dtype) * p
+        # scale_by_learning_rate
+        if isinstance(lr, torch.Tensor):
+            u = (-lr).to(u.dtype) * u
+        else:
+            u = _scalar(-lr, u.dtype) * u
+        return u, mu, nu
+
+    def update(self, grads, state: OptState, params):
+        g_leaves = tree_leaves(grads)
+        scalars = self._scalars(state, global_norm(grads))
+        outs = [self._leaf(g, m, n, p, scalars) for g, m, n, p in zip(
+            g_leaves, tree_leaves(state["mu"]), tree_leaves(state["nu"]),
+            tree_leaves(params))]
+        new = {"count": state["count"] + 1,
+               "mu": _unflatten(params, [o[1] for o in outs]),
+               "nu": _unflatten(params, [o[2] for o in outs])}
+        return _unflatten(params, [o[0] for o in outs]), new
+
+    @torch.no_grad()
+    def step_(self, grads, state: OptState, params) -> torch.Tensor:
+        g_norm = global_norm(grads)
+        scalars = self._scalars(state, g_norm)
+        for g, m, n, p in zip(tree_leaves(grads), tree_leaves(state["mu"]),
+                              tree_leaves(state["nu"]), tree_leaves(params)):
+            u, new_m, new_n = self._leaf(g, m, n, p, scalars)
+            p.copy_(apply_updates(p, u))
+            m.copy_(new_m)
+            n.copy_(new_n)
+        state["count"] += 1
+        return g_norm
+
+
+def apply_updates(p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """``optax.apply_updates`` for one leaf: p + u, cast to p's dtype."""
+    return (p + u).to(p.dtype)
+
+
+def make_optimizer(learning_rate: float = 3e-4, *, weight_decay: float = 0.1,
+                   b1: float = 0.9, b2: float = 0.95, grad_clip: float = 1.0,
+                   warmup_steps: int = 0, total_steps: Optional[int] = None,
+                   mu_dtype: Optional[torch.dtype] = None) -> AdamW:
+    """AdamW + global-norm clip (+ optional warmup-cosine schedule), as the
+    reference builds it. ``mu_dtype=torch.bfloat16`` halves the first
+    moment."""
+    if warmup_steps or total_steps:
+        schedule = warmup_cosine_decay_schedule(
+            0.0, learning_rate, max(warmup_steps, 1),
+            max(total_steps or warmup_steps * 10, warmup_steps + 1))
+    else:
+        schedule = learning_rate
+    return AdamW(schedule, weight_decay=weight_decay, b1=b1, b2=b2, eps=1e-8,
+                 grad_clip=grad_clip, mu_dtype=mu_dtype)
+
+
+# ---- state and steps -------------------------------------------------------
+
+def make_init_fn(cfg: TransformerConfig, tx: AdamW, device=None):
+    def init(rng: torch.Generator) -> TrainState:
+        params = init_params(rng, cfg, device)
+        return {"step": torch.zeros((), dtype=torch.int32,
+                                    device=tree_leaves(params)[0].device),
+                "params": params, "opt_state": tx.init(params)}
+    return init
+
+
+def init_train_state(rng: torch.Generator, cfg: TransformerConfig, tx: AdamW,
+                     mesh=None, rules=None, device=None) -> TrainState:
+    """Params from ``rng`` (on ``device``, CUDA unless the caller asks for
+    the CPU) and zero moments."""
+    del rules
+    _refuse_mesh(mesh)
+    return make_init_fn(cfg, tx, device)(rng)
+
+
+def make_train_step(cfg: TransformerConfig, tx: AdamW, mesh=None,
+                    rules=None):
+    """-> ``step(state, batch) -> (state, metrics)``. The state is updated
+    in place and returned; metrics are ``loss``, ``perplexity``,
+    ``grad_norm`` (of the raw grads, before the clip) and ``step``."""
+    del rules
+    _refuse_mesh(mesh)
+
+    def step(state: TrainState, batch):
+        params = state["params"]
+        leaves = tree_leaves(params)
+        flags = [p.requires_grad for p in leaves]
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            with torch.enable_grad():
+                loss, metrics = loss_fn(params, batch, cfg)
+                grads = torch.autograd.grad(loss, leaves)
+        finally:
+            for p, flag in zip(leaves, flags):
+                p.requires_grad_(flag)
+        grad_norm = tx.step_(_unflatten(params, list(grads)),
+                             state["opt_state"], params)
+        del grads
+        state["step"] += 1
+        return state, {"loss": loss.detach(),
+                       "perplexity": metrics["perplexity"].detach(),
+                       "grad_norm": grad_norm, "step": state["step"].clone()}
+
+    return step
+
+
+def make_eval_step(cfg: TransformerConfig, mesh=None):
+    _refuse_mesh(mesh)
+
+    @torch.no_grad()
+    def step(params, batch):
+        _, metrics = loss_fn(params, batch, cfg)
+        return metrics
+
+    return step

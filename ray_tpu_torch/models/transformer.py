@@ -4,9 +4,10 @@ Plain functions on a params dict that keeps the reference's names and
 stacked ``[L, ...]`` shapes (``embed``, ``layers/{attn_norm, wq, wk, wv, wo,
 mlp_norm, w_gate, w_up, w_down}``, ``final_norm``, optional ``lm_head``);
 ``Transformer`` is an ``nn.Module`` holding the same tensors. A Python loop
-over the layer index takes the place of ``lax.scan``. Numerics follow the
-reference: compute in ``cfg.dtype``, RMSNorm statistics, softmax and logits
-in fp32.
+over the layer index takes the place of ``lax.scan``; with ``cfg.remat`` each
+layer runs under ``torch.utils.checkpoint``, the counterpart of
+``jax.checkpoint`` with policy ``"nothing"``. Numerics follow the reference:
+compute in ``cfg.dtype``, RMSNorm statistics, softmax and logits in fp32.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Any, Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.config import TransformerConfig
@@ -98,19 +100,18 @@ def layer(params: Params, i: int) -> Params:
 
 class Transformer(nn.Module):
     """The params dict as an ``nn.Module``: the stacked weights under the
-    reference's names (``layers`` is a ``ParameterDict``)."""
+    reference's names (``layers`` is a ``ParameterDict``), sharing the
+    dict's storage and trainable like any module's parameters."""
 
     def __init__(self, params: Params, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
-        self.embed = nn.Parameter(params["embed"], requires_grad=False)
+        self.embed = nn.Parameter(params["embed"])
         self.layers = nn.ParameterDict(
-            {k: nn.Parameter(w, requires_grad=False)
-             for k, w in params["layers"].items()})
-        self.final_norm = nn.Parameter(params["final_norm"],
-                                       requires_grad=False)
+            {k: nn.Parameter(w) for k, w in params["layers"].items()})
+        self.final_norm = nn.Parameter(params["final_norm"])
         self.lm_head = (None if cfg.tie_embeddings else
-                        nn.Parameter(params["lm_head"], requires_grad=False))
+                        nn.Parameter(params["lm_head"]))
 
     def params(self) -> Params:
         p = {"embed": self.embed, "layers": dict(self.layers.items()),
@@ -226,6 +227,21 @@ def embed_tokens(params: Params, tokens, cfg: TransformerConfig):
 
 # ---- forward ---------------------------------------------------------------
 
+def _block(x, lp: Params, cfg: TransformerConfig, positions):
+    """One decoder layer: -> (x, aux), the scanned body of the reference."""
+    h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+    q, k, v = qkv_proj(h, lp, cfg, positions)
+    reps = cfg.n_heads // cfg.kv_heads
+    if reps > 1:  # GQA: expand kv heads to match q heads (jnp.repeat)
+        k = k.repeat_interleave(reps, dim=2)
+        v = v.repeat_interleave(reps, dim=2)
+    o = _attention(q, k, v, cfg)
+    x = x + attn_out(o, lp, cfg)
+    h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+    down, aux = ffn_block(h, lp, cfg)
+    return x + down, aux
+
+
 def forward(params: Params, tokens, cfg: TransformerConfig, mesh=None,
             return_aux: bool = False):
     """tokens [B, T] int -> logits [B, T, vocab] fp32, on the params' device.
@@ -234,22 +250,21 @@ def forward(params: Params, tokens, cfg: TransformerConfig, mesh=None,
     load-balance loss (0.0 for the dense FFN)."""
     x = embed_tokens(params, tokens, cfg)  # [B, T, d]
     _select_attention(cfg, x.device, mesh)  # refuse what is not ported first
-    T = x.shape[1]
-    positions = torch.arange(T, device=x.device)
-    reps = cfg.n_heads // cfg.kv_heads
+    if cfg.remat and cfg.remat_policy == "dots":
+        raise NotImplementedError(
+            "remat_policy='dots' (save the matmul outputs) is not ported "
+            "yet: ROADMAP.md queue A; 'nothing' rematerializes every layer")
+    positions = torch.arange(x.shape[1], device=x.device)
+    # jax.checkpoint's counterpart; without autograd there is nothing to save
+    remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         lp = layer(params, i)
-        h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
-        q, k, v = qkv_proj(h, lp, cfg, positions)
-        if reps > 1:  # GQA: expand kv heads to match q heads (jnp.repeat)
-            k = k.repeat_interleave(reps, dim=2)
-            v = v.repeat_interleave(reps, dim=2)
-        o = _attention(q, k, v, cfg)
-        x = x + attn_out(o, lp, cfg)
-        h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-        down, layer_aux = ffn_block(h, lp, cfg)
-        x = x + down
+        if remat:
+            x, layer_aux = checkpoint(_block, x, lp, cfg, positions,
+                                      use_reentrant=False)
+        else:
+            x, layer_aux = _block(x, lp, cfg, positions)
         aux = aux + layer_aux
     logits = lm_head(params, x, cfg)
     return (logits, aux) if return_aux else logits
@@ -257,7 +272,7 @@ def forward(params: Params, tokens, cfg: TransformerConfig, mesh=None,
 
 def loss_fn(params: Params, batch: Dict[str, Any], cfg: TransformerConfig,
             mesh=None):
-    """Next-token cross entropy (forward only: training is the next slice).
+    """Next-token cross entropy, differentiable (``models/training.py``).
     batch: {"tokens": [B, T]} (targets shifted) or {"inputs": [B, T],
     "targets": [B, T], optional "mask": [B, T]}."""
     if "inputs" in batch:

@@ -1,13 +1,14 @@
 """Builds the port's CUDA sources with ``nvcc`` at first use and loads them.
 
 Each ``csrc/<name>.cu`` becomes ``.build/ray_tpu_torch/lib<name>-<hash>.so``
-in the checkout, keyed by the source's content hash, so an edited source is
-rebuilt and an unchanged one is loaded as it is. The libraries expose plain
-C functions (no PyTorch headers, which would cost minutes of ``nvcc`` per
-build) and are bound with ``ctypes``.
+in the checkout, keyed by the content hash of the source and the shared
+headers (``csrc/*.cuh``), so an edited source is rebuilt and an unchanged
+one is loaded as it is. ``build_all`` starts one ``nvcc`` per source at
+once. The libraries expose plain C functions (no PyTorch headers, which
+would cost minutes of ``nvcc`` per build) and are bound with ``ctypes``.
 
 Nothing here runs at import: only a wrapper handed a CUDA tensor, or a
-direct ``load()``, reaches ``nvcc``.
+direct ``load()`` or ``build_all()``, reaches ``nvcc``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List
 
@@ -26,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / ".build" / "ray_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: Dict[str, threading.Lock] = {}  # one per source
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -46,8 +50,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -72,14 +79,31 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+    Builds of different sources may run at once; one source builds once."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name not in _libs:
             out = _target(name)
             if not out.exists():
                 _compile(name, out)
             _libs[name] = ctypes.CDLL(str(out))
         return _libs[name]
+
+
+def build_all() -> Dict[str, float]:
+    """Loads every source, one thread each, so every ``nvcc`` that has to
+    run starts at once; -> seconds each load took (its build, where one
+    ran). Raises if any build fails."""
+    def timed_load(name: str) -> float:
+        t0 = time.perf_counter()
+        load(name)
+        return time.perf_counter() - t0
+
+    names = sources()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(timed_load, names)))

@@ -23,10 +23,12 @@ def _port_modules():
 
 
 def test_port_imports_no_jax_and_no_reference_package():
-    """Importing every module of the port, and chip_smoke, loads no JAX,
-    no ml_dtypes, nothing of ray_tpu, and builds no kernel."""
-    mods = _port_modules() + ["chip_smoke"]
-    assert "ray_tpu_torch.ops.flash_attention" in mods
+    """Importing every module of the port, and the card scripts
+    (chip_smoke, kernel_mutants), loads no JAX, no ml_dtypes,
+    nothing of ray_tpu, and builds no kernel."""
+    mods = _port_modules() + ["chip_smoke", "kernel_mutants"]
+    assert {"ray_tpu_torch.ops.flash_attention", "ray_tpu_torch.ops._build",
+            "ray_tpu_torch.models.training"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -42,7 +44,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                          env={**os.environ, "PYTHONPATH": str(_ROOT)})
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got == {"bad": [], "built": [], "sources": ["flash_fwd"]}
+    assert got == {"bad": [], "built": [],
+                   "sources": ["flash_bwd", "flash_fwd"]}
 
 
 @pytest.fixture
@@ -56,11 +59,15 @@ def test_entry_points_without_device_raise_instead_of_using_cpu(no_cuda):
     from ray_tpu_torch.interop import params_from_numpy, tensor_from_numpy
     from ray_tpu_torch.models.config import tiny_config
     from ray_tpu_torch.models.engine import InferenceEngine
+    from ray_tpu_torch.models.training import init_train_state, make_optimizer
     from ray_tpu_torch.models.transformer import init_params
 
     cfg = tiny_config()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_params(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_train_state(torch.Generator().manual_seed(0), cfg,
+                         make_optimizer())
     params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         InferenceEngine(params, cfg)

@@ -105,9 +105,85 @@ def test_flash_attention_api_matches_reference(cuda):
     assert torch.equal(to3(out), o3)
 
 
-def test_backward_raises_on_cuda(cuda):
-    q, k, v = (torch.randn(1, 64, 2, 64, device=cuda, dtype=torch.bfloat16,
-                           requires_grad=True) for _ in range(3))
-    out = fa.flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="B2"):
-        out.float().sum().backward()
+_CASES = [
+    (8, 256, 256, 64, torch.bfloat16, True),
+    (4, 200, 200, 128, torch.bfloat16, False),
+    (4, 48, 48, 64, torch.bfloat16, True),
+    (2, 100, 150, 64, torch.bfloat16, True),
+    (2, 150, 100, 128, torch.bfloat16, True),
+    (4, 48, 48, 64, torch.float32, True),
+    (2, 130, 70, 128, torch.float32, False),
+    (2, 100, 100, 128, torch.float32, True),
+]
+
+
+@pytest.mark.parametrize("bh,t,t_k,d,dtype,causal", _CASES + [
+    (2, 70, 130, 64, torch.bfloat16, False),
+    (2, 64, 192, 64, torch.float32, True),
+])
+def test_flash_bwd_matches_plain(cuda, bh, t, t_k, d, dtype, causal):
+    q, k, v = _qkv3(bh, t, t_k, d, dtype, cuda)
+    g = torch.Generator(device="cpu").manual_seed(7)
+    do = torch.randn(bh, t, d, generator=g).to(cuda, dtype)
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_fwd(q, k, v, scale=scale, causal=causal)
+    before = (fa.launches_dq, fa.launches_dkv)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, scale=scale,
+                                        causal=causal)
+    assert (fa.launches_dq, fa.launches_dkv) == (before[0] + 1,
+                                                 before[1] + 1)
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+    assert dq.dtype == dk.dtype == dv.dtype == dtype
+    # per-element bound scaled to each output, see check_bwd
+    check = fa.check_bwd(dq, dk, dv, q, k, v, o, lse, do, scale=scale,
+                         causal=causal)
+    assert check["ok"], check
+    _, delta = fa.flash_bwd_dq_reference(q, k, v, o, lse, do, scale=scale,
+                                         causal=causal)
+    _, delta_kernel = fa.flash_bwd_dq(q, k, v, o, lse, do, scale=scale,
+                                      causal=causal)
+    torch.testing.assert_close(delta_kernel, delta, rtol=1e-4, atol=1e-4)
+
+
+def test_bwd_plain_versions_launch_nothing(cuda):
+    q, k, v = _qkv3(2, 64, 64, 64, torch.bfloat16, cuda)
+    o, lse = fa.flash_attention_fwd(q, k, v, scale=0.125, causal=True)
+    before = (fa.launches_dq, fa.launches_dkv)
+    fa.flash_attention_bwd_reference(q, k, v, o, lse, o, scale=0.125,
+                                     causal=True)
+    assert (fa.launches_dq, fa.launches_dkv) == before
+
+
+@pytest.mark.parametrize("d", [32, 96])
+def test_bwd_unsupported_head_dim_raises(cuda, d):
+    q, k, v = _qkv3(2, 64, 64, d, torch.bfloat16, cuda)
+    lse = torch.zeros(2, 1, 64, device=cuda)
+    before = fa.launches_dq
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_bwd(q, k, v, q, lse, q, scale=d ** -0.5,
+                               causal=True)
+    assert fa.launches_dq == before
+
+
+def test_backward_launches_b2_and_b3(cuda):
+    """A backward through flash_attention on CUDA runs B2 and B3 once each,
+    and its gradients agree with autograd through reference_attention."""
+    g = torch.Generator(device="cpu").manual_seed(2)
+    b, t, h, d = 2, 96, 4, 64
+    leaves = [torch.randn(b, t, h, d, generator=g).to(cuda, torch.bfloat16)
+              .requires_grad_(True) for _ in range(3)]
+    do = torch.randn(b, t, h, d, generator=g).to(cuda, torch.bfloat16)
+    before = (fa.launches, fa.launches_dq, fa.launches_dkv)
+    out = fa.flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert (fa.launches, fa.launches_dq, fa.launches_dkv) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    ref = torch.autograd.grad(
+        reference_attention(*(x.float() for x in leaves), causal=True),
+        leaves, do.float())
+    for got, want in zip(grads, ref):
+        assert bool(torch.isfinite(got).all())
+        # bf16 kernel vs the fp32 plain gradient: rounding of P, dS and the
+        # bf16 output (check_bwd's relative bound)
+        rel = ((got.float() - want.float()).norm() / want.float().norm())
+        assert rel.item() <= 1e-2, rel.item()
