@@ -9,12 +9,16 @@ drives the port's serving and training paths on llama3-1b at full width
 tied embeddings; random weights and tokens from --seed), one JSON line per
 phase:
 
-  build     nvcc for every csrc/*.cu, all started together
+  build     nvcc for every csrc/*.cu, all started together; ptxas'
+            registers, shared memory and spills of every kernel (the phase
+            fails if any kernel spills)
   device    the card, its count and power limit
   kernels   each kernel against its plain PyTorch version at the main
             paths' shapes and more: errors beside tolerances, kernel / plain
             / PyTorch-library times (CUDA events) and the card's bound;
-            B1 (flash_fwd), then B2 and B3 (flash_bwd_dq, flash_bwd_dkv)
+            B1 (flash_fwd), then B2 and B3 (flash_bwd_dq, flash_bwd_dkv);
+            the bf16 B1 and B3 are the sm_90a designs (TMA tile rings
+            gated by mbarriers, wgmma), B2 is mma.sync
   forward   forward(params, tokens[4, 2048]) in bf16 through the flash
             kernel (launches counted), against plain attention and the
             fp32 forward
@@ -237,24 +241,25 @@ def phase_kernels_bwd(fa, seed: int):
 
 
 def phase_kernels(fa, seed: int):
-    """B1 against its plain version at the forward's shape and four more."""
+    """B1 against its plain version at the forward's shape and five more."""
     import torch
     import torch.nn.functional as F
 
     cases = [
-        # name, bh, t, d, dtype, causal
-        ("main", 128, 2048, 64, torch.bfloat16, True),  # llama3-1b forward
-        ("d128", 64, 2048, 128, torch.bfloat16, True),
-        ("noncausal", 96, 512, 64, torch.bfloat16, False),  # bert-base-like
-        ("fp32", 32, 1024, 128, torch.float32, True),
-        ("ragged_t48", 128, 48, 64, torch.bfloat16, True),
+        # name, bh, t, t_k, d, dtype, causal
+        ("main", 128, 2048, 2048, 64, torch.bfloat16, True),  # llama3-1b forward
+        ("d128", 64, 2048, 2048, 128, torch.bfloat16, True),
+        ("noncausal", 96, 512, 512, 64, torch.bfloat16, False),  # bert-base-like
+        ("fp32", 32, 1024, 1024, 128, torch.float32, True),
+        ("ragged_t48", 128, 48, 48, 64, torch.bfloat16, True),
+        ("tq_ne_tk", 32, 1000, 1536, 64, torch.bfloat16, True),
     ]
     g = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    for name, bh, t, d, dtype, causal in cases:
-        q, k, v = (torch.randn(bh, t, d, generator=g, device="cuda",
-                               dtype=torch.float32).to(dtype)
-                   for _ in range(3))
+    for name, bh, t, t_k, d, dtype, causal in cases:
+        q = torch.randn(bh, t, d, generator=g, device="cuda").to(dtype)
+        k, v = (torch.randn(bh, t_k, d, generator=g, device="cuda").to(dtype)
+                for _ in range(2))
         scale = d ** -0.5
         o, lse = fa.flash_attention_fwd(q, k, v, scale=scale, causal=causal)
         check = fa.check_fwd(o, lse, q, k, v, scale=scale, causal=causal)
@@ -269,8 +274,8 @@ def phase_kernels(fa, seed: int):
         lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=causal, scale=scale), iters)
         bound_ms, bound_by, flops, nbytes = _flash_bound(
-            bh, t, t, d, dn, causal)
-        row = {"case": name, "shape": [bh, t, d], "dtype": dn,
+            bh, t, t_k, d, dn, causal)
+        row = {"case": name, "shape": [bh, t, t_k, d], "dtype": dn,
                "causal": causal, **check, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
                "bytes": nbytes, "tflops_per_s": flops / ms / 1e9}
@@ -289,9 +294,9 @@ def _rel(x, ref) -> float:
     return ((x - ref).norm() / ref.norm()).item()
 
 
-def phase_forward(fa, T, cfg, params, p32, seed: int):
-    """The main path: forward at [4, 2048] in bf16 through the kernel (its
-    launches counted), held against plain attention two ways:
+def forward_parity(T, cfg, params, p32, tokens) -> dict:
+    """The forward through the kernel (``cfg``) held against plain
+    attention two ways:
       - fp32: the same forward in fp32 through the kernel against fp32
         plain attention, within _FWD_REL_TOL;
       - bf16: both bf16 forwards against the fp32 one; the kernel's forward
@@ -300,21 +305,12 @@ def phase_forward(fa, T, cfg, params, p32, seed: int):
     A direct bf16-vs-bf16 bound cannot hold: this random-weight model is
     chaotic in bf16. Measured on the H100 with P.V made exact to fp32 in
     the kernel, the two bf16 forwards still differed by 2.5%, while each
-    kept 3.05% from the fp32 forward (printed as rel_bf16_*)."""
+    kept 3.05% from the fp32 forward (printed as rel_bf16_*).
+    -> the distances, their ratio, the logits' shape, "finite" and "ok"."""
     import torch
 
-    g = torch.Generator(device="cuda").manual_seed(seed + 1)
-    tokens = torch.randint(0, cfg.vocab_size, (4, 2048), generator=g,
-                           device="cuda", dtype=torch.int32)
-    torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0
     logits = T.forward(params, tokens, cfg)
     torch.cuda.synchronize()
-    launches = fa.launches
-    peak = torch.cuda.max_memory_allocated()
-    if launches != cfg.n_layers:
-        raise AssertionError(f"forward launched flash_fwd {launches} times, "
-                             f"want {cfg.n_layers} (one per layer)")
     finite = bool(torch.isfinite(logits).all())
     plain_cfg = dataclasses.replace(cfg, attention_impl="xla")
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
@@ -325,24 +321,55 @@ def phase_forward(fa, T, cfg, params, p32, seed: int):
     rel_bf16 = {"kernel_vs_fp32": _rel(logits, truth),
                 "plain_vs_fp32": _rel(ref, truth),
                 "kernel_vs_plain": _rel(logits, ref)}
-    del ref
+    shape = list(logits.shape)
+    del ref, logits
     rel_fp32 = _rel(T.forward(p32, tokens, cfg32), truth)
     del truth
+    ratio = rel_bf16["kernel_vs_fp32"] / rel_bf16["plain_vs_fp32"]
+    return {"logits_shape": shape, "finite": finite,
+            "rel_fp32_kernel_vs_plain": rel_fp32, "rel_tol": _FWD_REL_TOL,
+            **{f"rel_bf16_{k}": v for k, v in rel_bf16.items()},
+            "bf16_kernel_over_plain": ratio,
+            "bf16_ratio_tol": _FWD_BF16_RATIO,
+            "ok": (finite and rel_fp32 <= _FWD_REL_TOL
+                   and ratio <= _FWD_BF16_RATIO)}
+
+
+def forward_tokens(cfg, seed: int):
+    """The forward phase's [4, 2048] random tokens on the card."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    return torch.randint(0, cfg.vocab_size, (4, 2048), generator=g,
+                         device="cuda", dtype=torch.int32)
+
+
+def phase_forward(fa, T, cfg, params, p32, seed: int):
+    """The main path: forward at [4, 2048] in bf16 through the kernel, its
+    launches counted in that one call, then held against plain attention
+    (forward_parity) and timed."""
+    import torch
+
+    tokens = forward_tokens(cfg, seed)
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    T.forward(params, tokens, cfg)
+    torch.cuda.synchronize()
+    launches = fa.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != cfg.n_layers:
+        raise AssertionError(f"forward launched flash_fwd {launches} times, "
+                             f"want {cfg.n_layers} (one per layer)")
+    parity = forward_parity(T, cfg, params, p32, tokens)
+    plain_cfg = dataclasses.replace(cfg, attention_impl="xla")
     ms = _time_ms(lambda: T.forward(params, tokens, cfg), 3, 1)
     plain_ms = _time_ms(lambda: T.forward(params, tokens, plain_cfg), 3, 1)
-    ratio = rel_bf16["kernel_vs_fp32"] / rel_bf16["plain_vs_fp32"]
-    ok = finite and rel_fp32 <= _FWD_REL_TOL and ratio <= _FWD_BF16_RATIO
     _emit({"phase": "forward", "tokens": [4, 2048], "dtype": "bfloat16",
-           "attention_impl": "auto", "flash_launches": launches,
-           "logits_shape": list(logits.shape), "finite": finite,
-           "rel_fp32_kernel_vs_plain": rel_fp32, "rel_tol": _FWD_REL_TOL,
-           **{f"rel_bf16_{k}": v for k, v in rel_bf16.items()},
-           "bf16_kernel_over_plain": ratio,
-           "bf16_ratio_tol": _FWD_BF16_RATIO,
-           "ok": ok, "ms": ms, "plain_attention_ms": plain_ms,
+           "attention_impl": "auto", "flash_launches": launches, **parity,
+           "ms": ms, "plain_attention_ms": plain_ms,
            "tokens_per_s": 4 * 2048 / ms * 1e3,
            "peak_mem_gib": peak / 2**30})
-    if not ok:
+    if not parity["ok"]:
         raise AssertionError("forward through the kernel disagrees with "
                              "plain attention")
     return launches
@@ -747,13 +774,14 @@ def run(seed: int) -> int:
     t0 = time.perf_counter()
     per_source = _build.build_all()  # one nvcc per source, all together
     libs = {n: _build.load(n)._name for n in _build.sources()}
+    ptxas = {n: _build.ptxas_report(_build.build_log(n)) for n in libs}
+    spilled = [k["kernel"] for ks in ptxas.values() for k in ks
+               if k["spill_stores"] or k["spill_loads"]]
     _emit({"phase": "build", "seconds": time.perf_counter() - t0,
            "seconds_per_source": per_source,
            "libraries": {n: os.path.relpath(p, _ROOT)
                          for n, p in libs.items()},
-           "ptxas": {n: [ln.strip() for ln in _build.build_log(n).splitlines()
-                         if "registers" in ln or "spill" in ln]
-                     for n in libs}})
+           "ptxas": ptxas, "spilled": spilled, "ok": not spilled})
 
     smi = _nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -762,7 +790,7 @@ def run(seed: int) -> int:
            "nvidia_smi": smi, "torch": torch.__version__,
            "cuda": torch.version.cuda})
 
-    failed = []
+    failed = ["build"] if spilled else []
 
     def attempt(name, fn, *args):
         # a failed phase is reported and the later phases still run, so one
@@ -807,14 +835,17 @@ def run(seed: int) -> int:
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
+        "tflops_per_s": main["tflops_per_s"],
+        "bound_share": main["bound_ms"] / main["ms"],
         "launches_by_path": {"forward": launches,
                              "train_step": train_launches["flash_fwd"]}}]
-    for name, line_no, err in (("flash_bwd_dq", 87, "dq_max_abs_err"),
-                               ("flash_bwd_dkv", 111, None)):
+    for name, line_no, source, err in (
+            ("flash_bwd_dq", 87, "flash_bwd.cu", "dq_max_abs_err"),
+            ("flash_bwd_dkv", 111, "flash_bwd_dkv.cu", None)):
         k = bwd_main[name]
         line.append({
             "name": name, "route": "cuda",
-            "source": "ray_tpu_torch/csrc/flash_bwd.cu",
+            "source": f"ray_tpu_torch/csrc/{source}",
             "replaces": f"ray_tpu/ops/flash_attention.py:{line_no}",
             "launches": train_launches[name],
             "max_abs_err": (bwd_main[err] if err else
@@ -822,7 +853,9 @@ def run(seed: int) -> int:
                                 bwd_main["dv_max_abs_err"])),
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"]})
+            "library_ms": k["library_ms"],
+            "tflops_per_s": k["tflops_per_s"],
+            "bound_share": k["bound_ms"] / k["ms"]})
     _emit({"kernels": line})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

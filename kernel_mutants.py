@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
-"""Shows that the backward kernels' checks are not blind: deliberately
-broken copies of B2 and B3 must fail them, and the unbroken kernels must
-pass them with room to spare.
+"""Shows that the flash kernels' checks are not blind: deliberately broken
+copies of B1, B2 and B3 must fail them, and the unbroken kernels must pass
+them with room to spare.
 
     python3 kernel_mutants.py [--seed N] [--weight-seeds 0 1]
                               [--batch-seeds 3 4]
 
-Two checks, each for the checkout's own kernels (the baseline) and for each
-mutant:
+Four checks, each for the checkout's own kernels (the baseline) and, as
+they apply, for each mutant:
 
-  check_bwd   B2/B3 against their plain versions at the llama3-1b training
-              shape [B*H=128, T=2048, D=64] bf16 causal
+  check_fwd   B1 against its plain version at the llama3-1b forward's shape
+              [B*H=128, T=2048, D=64] bf16 causal (``flash_attention.
+              check_fwd``);
+  forward     chip_smoke.py's forward check, ``chip_smoke.forward_parity``:
+              the llama3-1b forward at [4, 2048] through the kernel and
+              through plain attention, kernel/plain distance from the fp32
+              forward within chip_smoke's _FWD_BF16_RATIO;
+  check_bwd   B2/B3 against their plain versions at the training shape
               (``flash_attention.check_bwd``);
   train       chip_smoke.py's train check (a), ``chip_smoke.train_parity``:
               one llama3-1b step (batch 4 x 2048, bf16, remat) through the
@@ -18,18 +24,22 @@ mutant:
               step, kernel/plain within chip_smoke's _TRAIN_BF16_RATIO.
 
 The baseline's train check runs over every --weight-seeds x --batch-seeds
-pair: the spread of the plain bf16 step that the ratios are set from. Each
-mutant's runs at chip_smoke's own seeds (weight seed --seed, batch seed
---seed + 3). The mutants, each one edit of ``csrc/flash_bwd.cu`` in a copy of
-``ray_tpu_torch`` in a temporary directory, built there with ``nvcc``:
+pair: the spread of the plain bf16 step that the ratios are set from; its
+other checks, and every mutant's, run at chip_smoke's own seeds (weight seed
+--seed, batch seed --seed + 3). The mutants, each a few edited lines of one
+``csrc`` source in a copy of ``ray_tpu_torch`` in a temporary directory,
+built there with ``nvcc``:
 
-  b2_skip_k_tile   B2 leaves out K/V tile 1 (keys 64-127) for every query tile
+  b1_skip_k_tile   B1 masks out K/V tile 1 (keys 128-255) for every query
+                   block (check_fwd, forward)
+  b2_skip_k_tile   B2 leaves out K/V tile 1 (keys 64-127) for every query
+                   tile (check_bwd, train)
   b3_skip_q_tile   B3 leaves out the Q/dO tile at query 1024 for every key
-                   block
+                   block (check_bwd, train)
 
-One JSON line per check run. Exits non-zero unless both checks pass the
-baseline and refuse every mutant. Needs an NVIDIA GPU and nvcc; the
-checkout itself is not changed.
+One JSON line per check run. Exits non-zero unless every check passes the
+baseline and refuses every mutant it is run on. Needs an NVIDIA GPU and
+nvcc; the checkout itself is not changed.
 """
 
 from __future__ import annotations
@@ -44,21 +54,33 @@ import tempfile
 
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# name -> (the source line it edits, the line put in its place)
+# name -> (the source it edits, [(a line of it, the text put in its
+# place)], the checks it runs)
 MUTANTS = {
-    "b2_skip_k_tile": (
-        "  for (int k0 = 0; k0 < k_end; k0 += kBN) {\n",
-        "  for (int k0 = 0; k0 < k_end; k0 += kBN) {\n"
-        "    if (k0 == kBN) continue;\n"),
-    "b3_skip_q_tile": (
-        "  for (int q0 = causal ? k0 : 0; q0 < t; q0 += kBM) {\n",
-        "  for (int q0 = causal ? k0 : 0; q0 < t; q0 += kBM) {\n"
-        "    if (q0 == 1024) continue;\n"),
+    "b1_skip_k_tile": ("flash_fwd.cu", [
+        ("      if (key >= t_k || (causal && key > r0 + 8 * ((i >> 1) & 1))) "
+         "sc[i] = kNegInf;\n",
+         "      if (k0 == 2 * N || key >= t_k || "
+         "(causal && key > r0 + 8 * ((i >> 1) & 1))) sc[i] = kNegInf;\n"),
+        ("      return k0 + BN > t_k || (causal && k0 + BN - 1 > row_lo);\n",
+         "      return k0 == BN || k0 + BN > t_k || "
+         "(causal && k0 + BN - 1 > row_lo);\n")],
+        ["check_fwd", "forward"]),
+    "b2_skip_k_tile": ("flash_bwd.cu", [
+        ("  for (int k0 = 0; k0 < k_end; k0 += kBN) {\n",
+         "  for (int k0 = 0; k0 < k_end; k0 += kBN) {\n"
+         "    if (k0 == kBN) continue;\n")],
+        ["check_bwd", "train"]),
+    "b3_skip_q_tile": ("flash_bwd_dkv.cu", [
+        ("      const bool skip = causal && kw > q0 + BM - 1;\n",
+         "      const bool skip = (causal && kw > q0 + BM - 1) || q0 == 1024;\n")],
+        ["check_bwd", "train"]),
 }
+CHECKS = ["check_fwd", "forward", "check_bwd", "train"]
 
-# argv: package root, seed, weight seeds, batch seeds (JSON lists). The
-# package root comes first on sys.path, so ray_tpu_torch is the copy there;
-# chip_smoke is the checkout's.
+# argv: package root, seed, weight seeds, batch seeds, checks (JSON lists).
+# The package root comes first on sys.path, so ray_tpu_torch is the copy
+# there; chip_smoke is the checkout's.
 _PROBE = r"""
 import importlib, json, sys
 import torch
@@ -69,6 +91,7 @@ from ray_tpu_torch.models import training as TR
 from ray_tpu_torch.models import transformer as T
 assert fa.__file__.startswith(sys.argv[1]), fa.__file__
 seed = int(sys.argv[2])
+checks = json.loads(sys.argv[5])
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
@@ -78,32 +101,54 @@ q, k, v, do = (torch.randn(bh, t, d, generator=g, device="cuda")
                .to(torch.bfloat16) for _ in range(4))
 scale = d ** -0.5
 o, lse = fa.flash_attention_fwd(q, k, v, scale=scale, causal=True)
-dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, scale=scale,
-                                    causal=True)
 torch.cuda.synchronize()
-check = fa.check_bwd(dq, dk, dv, q, k, v, o, lse, do, scale=scale,
-                     causal=True)
-print(json.dumps({"check": "check_bwd", **check}), flush=True)
-del q, k, v, do, o, lse, dq, dk, dv
+if "check_fwd" in checks:
+    check = fa.check_fwd(o, lse, q, k, v, scale=scale, causal=True)
+    print(json.dumps({"check": "check_fwd", **check}), flush=True)
+if "check_bwd" in checks:
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, scale=scale,
+                                        causal=True)
+    torch.cuda.synchronize()
+    check = fa.check_bwd(dq, dk, dv, q, k, v, o, lse, do, scale=scale,
+                         causal=True)
+    print(json.dumps({"check": "check_bwd", **check}), flush=True)
+    del dq, dk, dv
+del q, k, v, do, o, lse
 torch.cuda.empty_cache()
 
-cfg = cs.train_config(C)
-for ws in json.loads(sys.argv[3]):
-    params = T.init_params(torch.Generator(device="cuda").manual_seed(ws),
+if "forward" in checks:
+    cfg = C.get_config("llama3-1b", param_dtype=torch.bfloat16)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(seed),
                            cfg, device="cuda")
-    for bs in json.loads(sys.argv[4]):
-        par = cs.train_parity(T, TR, cfg, params, cs.train_batch(cfg, bs))
-        print(json.dumps({"check": "train", "weight_seed": ws,
-                          "batch_seed": bs, **par}), flush=True)
-    del params
+    p32 = {"embed": params["embed"].float(),
+           "final_norm": params["final_norm"].float(),
+           "layers": {n: w.float() for n, w in params["layers"].items()}}
+    par = cs.forward_parity(T, cfg, params, p32, cs.forward_tokens(cfg, seed))
+    print(json.dumps({"check": "forward", "weight_seed": seed, **par}),
+          flush=True)
+    del params, p32
     torch.cuda.empty_cache()
+
+if "train" in checks:
+    cfg = cs.train_config(C)
+    for ws in json.loads(sys.argv[3]):
+        params = T.init_params(torch.Generator(device="cuda").manual_seed(ws),
+                               cfg, device="cuda")
+        for bs in json.loads(sys.argv[4]):
+            par = cs.train_parity(T, TR, cfg, params, cs.train_batch(cfg, bs))
+            print(json.dumps({"check": "train", "weight_seed": ws,
+                              "batch_seed": bs, **par}), flush=True)
+        del params
+        torch.cuda.empty_cache()
 """
 
 
-def _probe(pkg_root: str, seed: int, weight_seeds, batch_seeds) -> list:
+def _probe(pkg_root: str, seed: int, weight_seeds, batch_seeds,
+           checks) -> list:
     out = subprocess.run(
         [sys.executable, "-c", _PROBE, pkg_root, str(seed),
-         json.dumps(weight_seeds), json.dumps(batch_seeds)],
+         json.dumps(weight_seeds), json.dumps(batch_seeds),
+         json.dumps(checks)],
         cwd=pkg_root, capture_output=True, text=True, timeout=1200,
         env={**os.environ, "PYTHONPATH": os.pathsep.join(
             dict.fromkeys([pkg_root, _ROOT]))})
@@ -114,20 +159,22 @@ def _probe(pkg_root: str, seed: int, weight_seeds, batch_seeds) -> list:
 
 
 def run_mutant(name: str, seed: int) -> list:
-    """check_bwd and the train check of one mutant, built in a copy."""
-    old, new = MUTANTS[name]
+    """The checks of one mutant, built in a copy."""
+    source, edits, checks = MUTANTS[name]
     with tempfile.TemporaryDirectory(prefix=f"mutant_{name}_") as tmp:
         pkg = os.path.join(tmp, "ray_tpu_torch")
         shutil.copytree(os.path.join(_ROOT, "ray_tpu_torch"), pkg,
                         ignore=shutil.ignore_patterns("__pycache__"))
-        src = os.path.join(pkg, "csrc", "flash_bwd.cu")
+        src = os.path.join(pkg, "csrc", source)
         text = open(src).read()
-        if text.count(old) != 1:
-            raise RuntimeError(f"{name}: the line to edit occurs "
-                               f"{text.count(old)} times in flash_bwd.cu")
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{name}: the line to edit occurs "
+                                   f"{text.count(old)} times in {source}")
+            text = text.replace(old, new)
         with open(src, "w") as f:
-            f.write(text.replace(old, new))
-        return _probe(tmp, seed, [seed], [seed + 3])
+            f.write(text)
+        return _probe(tmp, seed, [seed], [seed + 3], checks)
 
 
 def main() -> int:
@@ -138,9 +185,11 @@ def main() -> int:
     args = ap.parse_args()
     ok = True
     runs = [("baseline", _probe(_ROOT, args.seed, args.weight_seeds,
-                                args.batch_seeds))]
+                                args.batch_seeds, CHECKS))]
     runs += [(name, run_mutant(name, args.seed)) for name in MUTANTS]
     for variant, rows in runs:
+        want = CHECKS if variant == "baseline" else MUTANTS[variant][2]
+        ok &= {row["check"] for row in rows} == set(want)
         for row in rows:
             refused = not row["ok"]
             print(json.dumps({"variant": variant, "refused": refused, **row}),

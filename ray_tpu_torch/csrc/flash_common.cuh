@@ -1,6 +1,8 @@
-// Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// the tile shape of the bf16 kernels, the bf16 tensor-core product
-// `mma.sync.m16n8k16` and its fragment loads from shared memory.
+// Pieces shared by the flash-attention kernels: the masked score, bf16
+// packing and the dynamic shared-memory limit (all of them), and for B2's
+// bf16 kernel (flash_bwd.cu) its tile shape, the tensor-core product
+// `mma.sync.m16n8k16` and its fragment loads from shared memory. The
+// sm_90a kernels B1 and B3 take their products from sm90_common.cuh.
 //
 // Fragment layout of m16n8k16 (g = lane / 4, tq = lane % 4):
 //   A 16x16 row-major: a[0] = row g, cols 2tq..2tq+1; a[1] = row g+8, same

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -76,6 +77,60 @@ def build_log(name: str) -> str:
     registers, shared memory and spills of each kernel."""
     log = _target(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def _kernel_name(mangled: str) -> str:
+    """``name<N>`` of a mangled ``[ns::]name<int N>`` (its last nested
+    name, each prefixed by its length, and its template argument), else
+    the mangled name itself."""
+    pos, name = 3, None
+    while mangled.startswith("_ZN"):
+        digits = re.match(r"\d+", mangled[pos:])
+        if not digits:
+            break
+        pos += digits.end()
+        name = mangled[pos:pos + int(digits.group())]
+        pos += int(digits.group())
+    arg = re.match(r"I[Li]+(\d+)E", mangled[pos:])
+    return f"{name}<{arg.group(1)}>" if name and arg else mangled
+
+
+def ptxas_report(log: str) -> List[dict]:
+    """Per kernel of a ``build_log``: its name (``flash_fwd_sm90_kernel<64>``
+    for the mangled one), registers, static shared memory, stack frame and
+    spill bytes, and ptxas' warnings about it (an ignored ``setmaxnreg``, a
+    serialised ``wgmma``)."""
+    kernels: List[dict] = []
+    cur: dict = {}
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?(\w+)'?", line)
+        if m:
+            mangled = m.group(1)
+            if not cur or cur["mangled"] != mangled:
+                cur = {"kernel": _kernel_name(mangled),
+                       "mangled": mangled, "registers": None, "smem_bytes": 0,
+                       "stack_bytes": None, "spill_stores": None,
+                       "spill_loads": None, "warnings": []}
+                kernels.append(cur)
+            continue
+        if not cur:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur["stack_bytes"], cur["spill_stores"], cur["spill_loads"] = (
+                int(x) for x in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            cur["smem_bytes"] = int(s.group(1)) if s else 0
+        if "warning" in line.lower() or "performance" in line.lower():
+            cur["warnings"].append(line.strip())
+    for k in kernels:
+        del k["mangled"]
+    return kernels
 
 
 def load(name: str) -> ctypes.CDLL:

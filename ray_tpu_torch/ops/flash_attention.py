@@ -3,9 +3,12 @@
 Port of ``ray_tpu/ops/flash_attention.py``. The Pallas forward kernel
 (``_fwd_kernel``/``_fwd``) becomes ``csrc/flash_fwd.cu`` (kernel B1), the
 backward kernels (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``, launched by
-``_bwd``) become ``csrc/flash_bwd.cu`` (B2: dQ and Delta; B3: dK, dV). They
-are built by ``ops/_build.py`` and called through ``ctypes``. The layout
-follows the reference: ``[B, T, H, D]`` at the API, ``[B*H, T, D]`` inside.
+``_bwd``) become ``csrc/flash_bwd.cu`` (B2: dQ and Delta) and
+``csrc/flash_bwd_dkv.cu`` (B3: dK, dV). For bf16, B1 and B3 are Hopper
+designs (TMA tile rings gated by mbarriers, wgmma; ``csrc/sm90_common.cuh``),
+B2 is ``mma.sync``. They are built by ``ops/_build.py`` and called through
+``ctypes``. The layout follows the reference: ``[B, T, H, D]`` at the API,
+``[B*H, T, D]`` inside.
 
 Dispatch is by device, never by a fallback: a CUDA tensor launches the
 kernel (or raises), a CPU tensor takes the plain version
@@ -315,7 +318,8 @@ def _launch_dkv(q3, k3, v3, lse, delta, do3, scale: float, causal: bool):
     _check_rows("flash_bwd_dkv", "lse", lse, q3)
     _check_rows("flash_bwd_dkv", "delta", delta, q3)
     dk, dv = torch.empty_like(k3), torch.empty_like(v3)
-    _call("flash_bwd", "flash_bwd_dkv", (q3, k3, v3, do3, lse, delta, dk, dv),
+    _call("flash_bwd_dkv", "flash_bwd_dkv",
+          (q3, k3, v3, do3, lse, delta, dk, dv),
           q3, k3, scale, causal)
     launches_dkv += 1
     return dk, dv
@@ -388,8 +392,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """Fused attention. q, k, v: [B, T, H, D] -> [B, T, H, D].
 
     ``block_q``/``block_k`` are the Pallas kernels' VMEM tiles, kept for the
-    reference's signature; the CUDA kernels tile at 64 (shared memory, not
-    VMEM, bounds them) and mask ragged tails themselves."""
+    reference's signature; the CUDA kernels choose their own tiles (64 or
+    128 rows: shared memory, not VMEM, bounds them) and mask ragged tails
+    themselves."""
     del block_q, block_k
     b, t, h, d = q.shape
     scale = scale if scale is not None else d ** -0.5

@@ -45,7 +45,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {"bad": [], "built": [],
-                   "sources": ["flash_bwd", "flash_fwd"]}
+                   "sources": ["flash_bwd", "flash_bwd_dkv", "flash_fwd"]}
 
 
 @pytest.fixture

@@ -33,16 +33,30 @@ def _qkv3(bh, t, t_k, d, dtype, device, seed=0):
             for n in (t, t_k, t_k)]
 
 
-@pytest.mark.parametrize("bh,t,t_k,d,dtype,causal", [
+# (bh, t, t_k, d, dtype, causal). The bf16 kernels tile queries and keys
+# by 64 and 128: T = 192 and 320 end in a partial 128-row tile, 200/136
+# puts T_q != T_k across a 128 boundary, and every BH > 1 case with such a
+# T has a partial last tile in each head.
+_CASES = [
     (8, 256, 256, 64, torch.bfloat16, True),
     (4, 200, 200, 128, torch.bfloat16, False),
     (4, 48, 48, 64, torch.bfloat16, True),
     (2, 100, 150, 64, torch.bfloat16, True),
     (2, 150, 100, 128, torch.bfloat16, True),
+    (3, 192, 192, 64, torch.bfloat16, True),
+    (3, 192, 192, 128, torch.bfloat16, False),
+    (2, 320, 320, 64, torch.bfloat16, False),
+    (2, 320, 320, 128, torch.bfloat16, True),
+    (2, 200, 136, 64, torch.bfloat16, True),
+    (2, 200, 136, 128, torch.bfloat16, False),
+    (2, 136, 200, 128, torch.bfloat16, True),
     (4, 48, 48, 64, torch.float32, True),
     (2, 130, 70, 128, torch.float32, False),
     (2, 100, 100, 128, torch.float32, True),
-])
+]
+
+
+@pytest.mark.parametrize("bh,t,t_k,d,dtype,causal", _CASES)
 def test_flash_fwd_matches_plain(cuda, bh, t, t_k, d, dtype, causal):
     q, k, v = _qkv3(bh, t, t_k, d, dtype, cuda)
     scale = d ** -0.5
@@ -105,18 +119,6 @@ def test_flash_attention_api_matches_reference(cuda):
     assert torch.equal(to3(out), o3)
 
 
-_CASES = [
-    (8, 256, 256, 64, torch.bfloat16, True),
-    (4, 200, 200, 128, torch.bfloat16, False),
-    (4, 48, 48, 64, torch.bfloat16, True),
-    (2, 100, 150, 64, torch.bfloat16, True),
-    (2, 150, 100, 128, torch.bfloat16, True),
-    (4, 48, 48, 64, torch.float32, True),
-    (2, 130, 70, 128, torch.float32, False),
-    (2, 100, 100, 128, torch.float32, True),
-]
-
-
 @pytest.mark.parametrize("bh,t,t_k,d,dtype,causal", _CASES + [
     (2, 70, 130, 64, torch.bfloat16, False),
     (2, 64, 192, 64, torch.float32, True),
@@ -143,6 +145,33 @@ def test_flash_bwd_matches_plain(cuda, bh, t, t_k, d, dtype, causal):
     _, delta_kernel = fa.flash_bwd_dq(q, k, v, o, lse, do, scale=scale,
                                       causal=causal)
     torch.testing.assert_close(delta_kernel, delta, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_partial_last_tile_reads_no_other_head(cuda, d, causal):
+    """T = 200 leaves every head a partial last tile (rows 128-199 of a
+    128-row tile). Heads 1 and 3 are NaN: a kernel whose tile reads past
+    the end of its head into the next one (a 2-D tensor map over
+    [B*H*T, D]) carries their NaN into heads 0 and 2, whose O, LSE, dQ, dK
+    and dV must still match the plain version."""
+    bh, t, dtype = 4, 200, torch.bfloat16
+    q, k, v = _qkv3(bh, t, t, d, dtype, cuda)
+    g = torch.Generator(device="cpu").manual_seed(7)
+    do = torch.randn(bh, t, d, generator=g).to(cuda, dtype)
+    for x in (q, k, v, do):
+        x[1::2] = float("nan")
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_fwd(q, k, v, scale=scale, causal=causal)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, scale=scale,
+                                        causal=causal)
+    ev = slice(0, bh, 2)
+    check = fa.check_fwd(o[ev], lse[ev], q[ev], k[ev], v[ev], scale=scale,
+                         causal=causal)
+    assert check["ok"], check
+    check = fa.check_bwd(dq[ev], dk[ev], dv[ev], q[ev], k[ev], v[ev], o[ev],
+                         lse[ev], do[ev], scale=scale, causal=causal)
+    assert check["ok"], check
 
 
 def test_bwd_plain_versions_launch_nothing(cuda):
