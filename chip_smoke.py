@@ -17,8 +17,8 @@ phase:
             paths' shapes and more: errors beside tolerances, kernel / plain
             / PyTorch-library times (CUDA events) and the card's bound;
             B1 (flash_fwd), then B2 and B3 (flash_bwd_dq, flash_bwd_dkv);
-            the bf16 B1 and B3 are the sm_90a designs (TMA tile rings
-            gated by mbarriers, wgmma), B2 is mma.sync
+            for bf16 all three are sm_90a designs (TMA tile rings gated by
+            mbarriers, wgmma)
   forward   forward(params, tokens[4, 2048]) in bf16 through the flash
             kernel (launches counted), against plain attention and the
             fp32 forward

@@ -32,8 +32,9 @@ built there with ``nvcc``:
 
   b1_skip_k_tile   B1 masks out K/V tile 1 (keys 128-255) for every query
                    block (check_fwd, forward)
-  b2_skip_k_tile   B2 leaves out K/V tile 1 (keys 64-127) for every query
-                   tile (check_bwd, train)
+  b2_skip_k_tile   B2 leaves out K/V tile 1 (keys 64-127: P = 0 there, so
+                   neither dS nor dQ sees them) for every query block
+                   (check_bwd, train)
   b3_skip_q_tile   B3 leaves out the Q/dO tile at query 1024 for every key
                    block (check_bwd, train)
 
@@ -67,9 +68,9 @@ MUTANTS = {
          "(causal && k0 + BN - 1 > row_lo);\n")],
         ["check_fwd", "forward"]),
     "b2_skip_k_tile": ("flash_bwd.cu", [
-        ("  for (int k0 = 0; k0 < k_end; k0 += kBN) {\n",
-         "  for (int k0 = 0; k0 < k_end; k0 += kBN) {\n"
-         "    if (k0 == kBN) continue;\n")],
+        ("        float p = fast_exp2(fmaf(sc[i], sl2, -lse2[h]));\n",
+         "        float p = k0 == BN ? 0.f : "
+         "fast_exp2(fmaf(sc[i], sl2, -lse2[h]));\n")],
         ["check_bwd", "train"]),
     "b3_skip_q_tile": ("flash_bwd_dkv.cu", [
         ("      const bool skip = causal && kw > q0 + BM - 1;\n",

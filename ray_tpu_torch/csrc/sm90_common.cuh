@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks of the redesigned flash kernels (B1 in
-// flash_fwd.cu, B3 in flash_bwd_dkv.cu), as inline PTX:
+// Hopper (sm_90a) building blocks of the flash kernels (B1 in flash_fwd.cu,
+// B2 in flash_bwd.cu, B3 in flash_bwd_dkv.cu), as inline PTX:
 //   - mbarriers: init, arrive, arrive.expect_tx and try_wait.parity;
 //   - TMA: a 3-D tiled load global -> shared that completes on an mbarrier,
 //     and the host-side encoding of its tensor map;
@@ -26,8 +26,9 @@
 // The wgmma accumulator of m64nN holds, in thread (warp w, lane = 4g + tq)
 // of the warpgroup, d[4j + e] = row 16w + g + 8(e >> 1), column
 // 8j + 2tq + (e & 1) — the layout of mma.sync's m16n8 C per 8 columns — and
-// an A fragment from registers is mma.sync's m16n8k16 A per warp, so
-// acc_to_a's packing carries over.
+// an A fragment from registers is mma.sync's m16n8k16 A per warp, so the
+// accumulator of one product packs pairwise into the A operand of the
+// next (acc_to_a_frags).
 
 #pragma once
 
@@ -291,7 +292,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
 
 // An m64nN accumulator as the A operands (bf16) of the next product, one
 // per k16 step over its N columns: step c takes its n8 blocks 2c and
-// 2c + 1, the packing of mma.sync's acc_to_a.
+// 2c + 1, rows g and g + 8 of each in turn.
 template <int N>
 __device__ __forceinline__ void acc_to_a_frags(uint32_t (&a)[N / 8][4],
                                                const float (&acc)[N]) {

@@ -4,9 +4,9 @@ Port of ``ray_tpu/ops/flash_attention.py``. The Pallas forward kernel
 (``_fwd_kernel``/``_fwd``) becomes ``csrc/flash_fwd.cu`` (kernel B1), the
 backward kernels (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``, launched by
 ``_bwd``) become ``csrc/flash_bwd.cu`` (B2: dQ and Delta) and
-``csrc/flash_bwd_dkv.cu`` (B3: dK, dV). For bf16, B1 and B3 are Hopper
-designs (TMA tile rings gated by mbarriers, wgmma; ``csrc/sm90_common.cuh``),
-B2 is ``mma.sync``. They are built by ``ops/_build.py`` and called through
+``csrc/flash_bwd_dkv.cu`` (B3: dK, dV). For bf16, all three are Hopper
+designs (TMA tile rings gated by mbarriers, wgmma; ``csrc/sm90_common.cuh``).
+They are built by ``ops/_build.py`` and called through
 ``ctypes``. The layout follows the reference: ``[B, T, H, D]`` at the API,
 ``[B*H, T, D]`` inside.
 

@@ -119,9 +119,16 @@ def test_flash_attention_api_matches_reference(cuda):
     assert torch.equal(to3(out), o3)
 
 
+# B2's 128-row query blocks and four-stage K/V ring: T = 2048 wraps the
+# ring many times in every block, and T = 330 over T_k = 200 puts T_q > T_k
+# across three query blocks, the last one ragged.
 @pytest.mark.parametrize("bh,t,t_k,d,dtype,causal", _CASES + [
     (2, 70, 130, 64, torch.bfloat16, False),
     (2, 64, 192, 64, torch.float32, True),
+    (2, 2048, 2048, 64, torch.bfloat16, True),
+    (2, 2048, 2048, 128, torch.bfloat16, True),
+    (2, 330, 200, 64, torch.bfloat16, True),
+    (2, 330, 200, 128, torch.bfloat16, True),
 ])
 def test_flash_bwd_matches_plain(cuda, bh, t, t_k, d, dtype, causal):
     q, k, v = _qkv3(bh, t, t_k, d, dtype, cuda)
@@ -145,6 +152,25 @@ def test_flash_bwd_matches_plain(cuda, bh, t, t_k, d, dtype, causal):
     _, delta_kernel = fa.flash_bwd_dq(q, k, v, o, lse, do, scale=scale,
                                       causal=causal)
     torch.testing.assert_close(delta_kernel, delta, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bwd_dq_is_deterministic(cuda, d, causal):
+    """B2 sums each dQ and Delta element in one thread, in a fixed order,
+    with no atomics: two launches on the same inputs agree bit for bit."""
+    bh, t = 4, 520
+    q, k, v = _qkv3(bh, t, t, d, torch.bfloat16, cuda)
+    g = torch.Generator(device="cpu").manual_seed(7)
+    do = torch.randn(bh, t, d, generator=g).to(cuda, torch.bfloat16)
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_fwd(q, k, v, scale=scale, causal=causal)
+    dq1, delta1 = fa.flash_bwd_dq(q, k, v, o, lse, do, scale=scale,
+                                  causal=causal)
+    dq2, delta2 = fa.flash_bwd_dq(q, k, v, o, lse, do, scale=scale,
+                                  causal=causal)
+    assert torch.equal(dq1, dq2)
+    assert torch.equal(delta1, delta2)
 
 
 @pytest.mark.parametrize("d", [64, 128])
