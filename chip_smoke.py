@@ -19,6 +19,8 @@ phase:
             B1 (flash_fwd), then B2 and B3 (flash_bwd_dq, flash_bwd_dkv);
             for bf16 all three are sm_90a designs (TMA tile rings gated by
             mbarriers, wgmma)
+  entry     ray_tpu_torch.entry.entry(): the GPT-2-small forward at
+            [4, 512], finite logits of the right shape
   forward   forward(params, tokens[4, 2048]) in bf16 through the flash
             kernel (launches counted), against plain attention and the
             fp32 forward
@@ -26,6 +28,25 @@ phase:
             port's own generate()
   serving   InferenceEngine in bf16 at bench_serve.py's settings under
             serve_forever: 8 client threads, 32 requests
+  moe_layer one Mixture-of-Experts layer of llama3-1b with 8 experts, top 2
+            (capacity factor 1.25) at [4, 2048] bf16: moe_ffn (dispatch by
+            index) against moe_ffn_dense (the reference's one-hot einsums):
+            the same experts and kept slots exactly, the output within a
+            per-element bf16 bound; both timed beside the layer's bound
+  moe_forward  the 16-layer MoE model's forward at [4, 2048] bf16 through
+            B1 (launches counted), against plain attention as distances from
+            the fp32 forward; tokens that route differently
+  moe_serving  the bf16 16-layer MoE model under serve_forever at
+            bench_serve.py's settings, as phase serving
+  moe_engine   the MoE model at 4 layers in fp32, the engine token for token
+            against generate() on prompts that fill their bucket (no pads)
+  moe_train    the MoE model at 4 layers, batch 4 x 2048, bf16, remat: the
+            train check (a) and five AdamW steps with launches counted; ms
+            per step and MFU of the active work
+  train_dots   phase train's cell with remat_policy="dots": one step's loss
+            and gradient against the "nothing" step's; two timed optimizer
+            steps each way and a third under the profiler: launches, ms per
+            step, device time and peak memory
   train     bench.py's llama3-1b training cell (batch 4 x 2048, bf16
             params, remat, AdamW with a bf16 first moment): one step's loss
             and gradient through the kernels and through plain attention,
@@ -33,7 +54,8 @@ phase:
             kernels with their launches counted; ms per step, tokens/s, MFU,
             peak memory and the device's busy share
 
-Then the kernel summary line, the card's nvidia-smi line, and as the last
+After each phase a line {"phase_wall": name, "s": seconds}. Then the
+kernel summary line, the card's nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failure exits non-zero before that
 line. Without a CUDA device it exits non-zero at once.
 """
@@ -41,6 +63,7 @@ line. Without a CUDA device it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -86,6 +109,46 @@ _TRAIN_BF16_RATIO = {"loss": 8.0, "grad": 1.05, "attn_grad": 1.05}
 _ATTN_GRAD_LEAVES = ("layers.wq", "layers.wk", "layers.wv")
 _TRAIN_STEPS = 5
 _TRAIN_LAUNCHES = {"flash_fwd": 32, "flash_bwd_dq": 16, "flash_bwd_dkv": 16}
+
+# The MoE configuration: llama3-1b at full width with 8 experts, top 2, the
+# reference's capacity factor and aux weight. Training runs 4 of its 16
+# layers (params, grads and both moments in bf16 are 8 B a parameter: 55 GB
+# at 16 layers, 15 GB at 4).
+_MOE = dict(moe_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
+            moe_aux_weight=0.01)
+_MOE_TRAIN_LAYERS = 4
+_MOE_TRAIN_LAUNCHES = {"flash_fwd": 8, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}
+# moe_layer: moe_ffn against moe_ffn_dense per element. Both gather the same
+# bf16 rows (exactly) and run the same three products; they may differ only
+# where a product's fp32 sum runs in another order and flips a bf16
+# rounding of gate, up, the op-by-op SwiGLU (a few roundings) or the
+# expert's output. With u = 2^-8 and A = sum over a token's kept slots of
+# p * (|act| @ |W_down|) (the size the output's rounding follows), the bound
+# is 2u|y| (y's own rounding, twice) + 6u A, with 5% and 1e-6 of slack, as
+# check_fwd scales its bound; as a whole ||dy|| / ||y|| <= 1e-2.
+_MOE_LAYER_UNIT = 2.0 ** -8
+_MOE_LAYER_REL_TOL = 1e-2
+# moe_layer's second case: a capacity factor under which about half the
+# slots drop (C = 256 places an expert a row for 4,096 slots a row), so the
+# dropped-slot path runs at full width too
+_MOE_LAYER_DROP_CF = 0.5
+# moe_forward: routing is a discontinuity. A token near a tie between two
+# experts changes its experts when attention's rounding changes, and the
+# change spreads to later layers and tokens: the bf16 forwards keep 0.37-
+# 0.40 from the fp32 one with 10-11% of token-layers routed differently,
+# and even fp32 through B1 and through plain attention route 0-107 of
+# 131,072 token-layers differently. Measured on the H100 over 2 weight
+# seeds x 2 batches of the unbroken kernels (kernel_mutants.py's baseline):
+# the bf16 kernel/plain ratio of distances from the fp32 forward 0.9864-
+# 1.0409, so 1.10 (B1's mutant: 3.09); fp32 kernel vs plain 1.1e-5 to
+# 3.09e-2 (the largest with 107 flips), so 0.1.
+_MOE_FWD_BF16_RATIO = 1.10
+_MOE_FWD_FP32_REL_TOL = 0.1
+# train_dots: "dots" only chooses which results the backward keeps and
+# which it recomputes, from the same ops on the same inputs, so its step
+# must equal "nothing"'s: loss (absolute) and flattened gradient (relative)
+# within 1e-6, as tests/test_torch_remat_dots.py holds them on the CPU.
+_DOTS_TOL = 1e-6
 
 
 def _emit(obj):
@@ -294,14 +357,18 @@ def _rel(x, ref) -> float:
     return ((x - ref).norm() / ref.norm()).item()
 
 
-def forward_parity(T, cfg, params, p32, tokens) -> dict:
+def forward_parity(T, cfg, params, p32, tokens,
+                   ratio_tol: float = _FWD_BF16_RATIO,
+                   rel_tol: float = _FWD_REL_TOL) -> dict:
     """The forward through the kernel (``cfg``) held against plain
     attention two ways:
       - fp32: the same forward in fp32 through the kernel against fp32
-        plain attention, within _FWD_REL_TOL;
+        plain attention, within ``rel_tol``;
       - bf16: both bf16 forwards against the fp32 one; the kernel's forward
-        may be at most _FWD_BF16_RATIO times as far from it as the
+        may be at most ``ratio_tol`` times as far from it as the
         plain-attention forward is.
+    ``p32`` may be the bf16 params themselves: the fp32 configs cast every
+    weight to fp32 where it is used, and bf16 values are exact in fp32.
     A direct bf16-vs-bf16 bound cannot hold: this random-weight model is
     chaotic in bf16. Measured on the H100 with P.V made exact to fp32 in
     the kernel, the two bf16 forwards still differed by 2.5%, while each
@@ -327,12 +394,12 @@ def forward_parity(T, cfg, params, p32, tokens) -> dict:
     del truth
     ratio = rel_bf16["kernel_vs_fp32"] / rel_bf16["plain_vs_fp32"]
     return {"logits_shape": shape, "finite": finite,
-            "rel_fp32_kernel_vs_plain": rel_fp32, "rel_tol": _FWD_REL_TOL,
+            "rel_fp32_kernel_vs_plain": rel_fp32, "rel_tol": rel_tol,
             **{f"rel_bf16_{k}": v for k, v in rel_bf16.items()},
             "bf16_kernel_over_plain": ratio,
-            "bf16_ratio_tol": _FWD_BF16_RATIO,
-            "ok": (finite and rel_fp32 <= _FWD_REL_TOL
-                   and ratio <= _FWD_BF16_RATIO)}
+            "bf16_ratio_tol": ratio_tol,
+            "ok": (finite and rel_fp32 <= rel_tol
+                   and ratio <= ratio_tol)}
 
 
 def forward_tokens(cfg, seed: int):
@@ -464,7 +531,7 @@ def _decode_chunk_profile(E, eng, cfg, steps: int):
                                   else "not measured")}
 
 
-def phase_serving(E, cfg, params, seed: int):
+def phase_serving(E, cfg, params, seed: int, name: str = "serving"):
     """bf16 engine at bench_serve.py's settings, 8 clients x 4 requests."""
     import torch
 
@@ -513,7 +580,8 @@ def phase_serving(E, cfg, params, seed: int):
                     for _, toks, _, _ in results)
     lat = [r[3] for r in results]
     ttft = [r[2] for r in results if r[2] is not None]
-    _emit({"phase": "serving", "dtype": "bfloat16", "clients": clients,
+    _emit({"phase": name, "dtype": "bfloat16", "n_layers": cfg.n_layers,
+           "moe_experts": cfg.moe_experts, "clients": clients,
            "requests": len(results), "want_requests": clients * per_client,
            "errors": errors, "hung_clients": hung,
            "wrong_length": bad_len, "out_of_vocab": bad_vocab,
@@ -528,8 +596,249 @@ def phase_serving(E, cfg, params, seed: int):
            "decode_chunk": _decode_chunk_profile(E, eng, cfg, 16)})
     if errors or hung or bad_len or bad_vocab or \
             len(results) != clients * per_client:
-        raise AssertionError("serving phase failed")
+        raise AssertionError(f"{name} phase failed")
 
+
+
+def moe_config(C, n_layers: int = 16, **kw):
+    """llama3-1b at full width with _MOE's experts, bf16 params."""
+    import torch
+
+    return C.get_config("llama3-1b", param_dtype=torch.bfloat16,
+                        n_layers=n_layers, **_MOE, **kw)
+
+
+def moe_train_config(C):
+    """moe_train's cell: _MOE_TRAIN_LAYERS layers, T = 2048, remat
+    "nothing", as train_config."""
+    return moe_config(C, _MOE_TRAIN_LAYERS, max_seq_len=2048, remat=True,
+                      remat_policy="nothing")
+
+
+def _moe_abs_path(M, h, lp, cfg):
+    """A [B, T, d] fp32: over each token's kept slots, p * (|act| @
+    |W_down|) of its expert, where act is the expert's SwiGLU of the token:
+    the size moe_layer's per-element bound follows. Expert by expert,
+    from the routing moe_ffn uses."""
+    import torch
+
+    B, t, d = h.shape
+    k = cfg.moe_top_k
+    top_p, top_i = M.top_k(M.router_probs(h, lp["router"]), k)
+    _, kept = M.assign_slots(top_i, cfg.moe_experts, M.capacity(t, cfg))
+    rows = h[:, :, None, :].expand(B, t, k, d).reshape(-1, d)
+    ids, p, kept = top_i.reshape(-1), top_p.reshape(-1), kept.reshape(-1)
+    out = torch.zeros(B * t * k, d, device=h.device)
+    for e in range(cfg.moe_experts):
+        sel = (ids == e) & kept
+        x = rows[sel]
+        act = M._silu(x @ lp["w_gate"][e]) * (x @ lp["w_up"][e])
+        out[sel] = p[sel, None] * (act.abs().float()
+                                   @ lp["w_down"][e].abs().float())
+    return out.reshape(B, t, k, d).sum(dim=2)
+
+
+def phase_moe_layer(M, cfg, params, seed: int):
+    """One MoE layer (layer 0 of ``params``) at [4, 2048] bf16: moe_ffn
+    against moe_ffn_dense on the same h, at ``cfg``'s capacity factor and at
+    _MOE_LAYER_DROP_CF. In each case expert ids and kept slots must be
+    equal exactly, the output within 1.05 (2u|y| + 6u A) + 1e-6 per element
+    (_MOE_LAYER_UNIT; A from _moe_abs_path) and 1e-2 as a whole; the second
+    case must drop slots. Both forms timed (CUDA events) beside the layer's
+    bound: the three products over the kept slots at 989 TFLOP/s against
+    the expert weights', h's and y's bytes at 3.35 TB/s. The bmm also
+    multiplies the empty places of its E*B*C rows ("bmm_flops")."""
+    import torch
+
+    lp = {k: params["layers"][k][0] for k in ("router", "w_gate", "w_up",
+                                              "w_down")}
+    g = torch.Generator(device="cuda").manual_seed(seed + 11)
+    B, t, d = 4, 2048, cfg.d_model
+    h = torch.randn(B, t, d, generator=g, device="cuda").to(cfg.dtype)
+    E, k, u = cfg.moe_experts, cfg.moe_top_k, _MOE_LAYER_UNIT
+    nbytes = (3.0 * E * d * cfg.d_ff + 2.0 * B * t * d) * h.element_size()
+    ok = True
+    for cf in (cfg.moe_capacity_factor, _MOE_LAYER_DROP_CF):
+        c = dataclasses.replace(cfg, moe_capacity_factor=cf)
+        C = M.capacity(t, c)
+        with torch.no_grad():
+            y, aux = M.moe_ffn(h, lp, c)
+            top_p, top_i = M.top_k(M.router_probs(h, lp["router"]), k)
+            _, kept = M.assign_slots(top_i, E, C)
+            y_d, aux_d, top_i_d, kept_d = M.moe_ffn_dense(h, lp, c)
+            torch.cuda.synchronize()
+            same_ids = torch.equal(top_i, top_i_d)
+            same_kept = torch.equal(kept, kept_d)
+            tol = 1.05 * (2 * u * y_d.float().abs()
+                          + 6 * u * _moe_abs_path(M, h, lp, c)) + 1e-6
+            dy = (y.float() - y_d.float())
+            err_over_tol = (dy.abs() / tol).max().item()
+            rel = (dy.norm() / y_d.float().norm()).item()
+            finite = bool(torch.isfinite(y.float()).all())
+            ms = _time_ms(lambda: M.moe_ffn(h, lp, c), 10)
+            dense_ms = _time_ms(lambda: M.moe_ffn_dense(h, lp, c), 5)
+        kept_rows = int(kept.sum().item())
+        dropped = 1 - kept_rows / kept.numel()
+        flops = 6.0 * d * cfg.d_ff * kept_rows
+        bmm_flops = 6.0 * d * cfg.d_ff * E * B * C
+        bound_ms, bound_by = _bound(flops, nbytes, "bfloat16")
+        case_ok = (finite and same_ids and same_kept and err_over_tol <= 1.0
+                   and rel <= _MOE_LAYER_REL_TOL
+                   and (cf == cfg.moe_capacity_factor or dropped > 0))
+        _emit({"phase": "moe_layer", "shape": [B, t, d], "dtype": "bfloat16",
+               **_MOE, "moe_capacity_factor": cf, "capacity": C,
+               "same_expert_ids": same_ids, "same_kept": same_kept,
+               "kept_rows": kept_rows, "dropped_share": dropped,
+               "max_abs_err": dy.abs().max().item(),
+               "err_over_tol": err_over_tol,
+               "tol": f"1.05*(2u|y| + 6u*sum_k p|act|@|W_down|) + 1e-6, "
+                      f"u={u}",
+               "rel_norm_err": rel, "rel_norm_tol": _MOE_LAYER_REL_TOL,
+               "aux": aux.item(), "aux_dense": aux_d.item(),
+               "ms": ms, "dense_ms": dense_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+               "ops_ms": flops / _PEAK_FLOPS["bfloat16"] * 1e3,
+               "bytes_ms": nbytes / _HBM_BYTES_PER_S * 1e3,
+               "bmm_flops": bmm_flops,
+               "tflops_per_s": flops / ms / 1e9, "ok": case_ok})
+        ok = ok and case_ok
+    if not ok:
+        raise AssertionError("moe_ffn disagrees with moe_ffn_dense")
+
+
+@contextlib.contextmanager
+def _routing_recorder(M):
+    """Collects the expert ids [B, T, k] of every moe.top_k call while
+    active (a measurement wrapper; the model is unchanged)."""
+    seen, top_k = [], M.top_k
+
+    def record(probs, k):
+        p, i = top_k(probs, k)
+        seen.append(i)
+        return p, i
+
+    M.top_k = record
+    try:
+        yield seen
+    finally:
+        M.top_k = top_k
+
+
+def moe_forward_tokens(cfg, seed: int):
+    """moe_forward's [4, 2048] random tokens on the card."""
+    return forward_tokens(cfg, seed + 20)
+
+
+def moe_forward_parity(T, M, cfg, params, tokens) -> dict:
+    """forward_parity of the MoE model within _MOE_FWD_BF16_RATIO and
+    _MOE_FWD_FP32_REL_TOL, with the token-layers whose expert set differs
+    from the fp32 forward's in each bf16 forward and in the fp32 forward
+    through B1."""
+    with _routing_recorder(M) as seen:
+        par = forward_parity(T, cfg, params, params, tokens,
+                             _MOE_FWD_BF16_RATIO, _MOE_FWD_FP32_REL_TOL)
+    L = cfg.n_layers
+    # forward_parity's order: bf16 B1, bf16 plain, fp32 plain, fp32 B1
+    sets = [[i.sort(dim=-1).values for i in seen[j * L:(j + 1) * L]]
+            for j in range(4)]
+
+    def differ(j):
+        return sum(int((a != b).any(dim=-1).sum().item())
+                   for a, b in zip(sets[j], sets[2]))
+
+    par["routed_differently_vs_fp32"] = {
+        "bf16_kernel": differ(0), "bf16_plain": differ(1),
+        "fp32_kernel": differ(3), "of_token_layers": L * tokens.numel()}
+    return par
+
+
+def phase_moe_forward(fa, T, M, cfg, params, seed: int):
+    """The 16-layer MoE forward at [4, 2048] bf16 through B1 (16 launches
+    counted in that one call), moe_forward_parity, ms (kernel and plain
+    attention) and peak memory."""
+    import torch
+
+    tokens = moe_forward_tokens(cfg, seed)
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    with torch.no_grad():
+        logits = T.forward(params, tokens, cfg)
+    torch.cuda.synchronize()
+    launches = fa.launches
+    peak = torch.cuda.max_memory_allocated()
+    shape_ok = list(logits.shape) == [4, 2048, cfg.vocab_size]
+    del logits
+    if launches != cfg.n_layers:
+        raise AssertionError(f"the MoE forward launched flash_fwd {launches}"
+                             f" times, want {cfg.n_layers}")
+    parity = moe_forward_parity(T, M, cfg, params, tokens)
+    plain_cfg = dataclasses.replace(cfg, attention_impl="xla")
+    ms = _time_ms(lambda: T.forward(params, tokens, cfg), 3, 1)
+    plain_ms = _time_ms(lambda: T.forward(params, tokens, plain_cfg), 3, 1)
+    _emit({"phase": "moe_forward", "tokens": [4, 2048], "dtype": "bfloat16",
+           **_MOE, "n_layers": cfg.n_layers, "flash_launches": launches,
+           **parity, "ms": ms, "plain_attention_ms": plain_ms,
+           "tokens_per_s": 4 * 2048 / ms * 1e3, "peak_mem_gib": peak / 2**30})
+    if not (parity["ok"] and shape_ok):
+        raise AssertionError("the MoE forward through the kernel disagrees "
+                             "with plain attention")
+    return launches
+
+
+def phase_moe_engine(E, G, cfg, params, seed: int):
+    """The MoE model in fp32 (no TF32): the engine token for token against
+    generate(). Every prompt is max_prompt_len (64) long, so no row carries
+    pads: the reference's moe_ffn has no pad mask and pads would claim
+    expert capacity in the engine's prefill and not in generate()'s (the
+    CPU tests hold mixed lengths against the JAX engine instead)."""
+    import torch
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                param_dtype=torch.float32)
+    p32 = {"embed": params["embed"].float(),
+           "final_norm": params["final_norm"].float(),
+           "layers": {k: w.float() for k, w in params["layers"].items()}}
+    rng = random.Random(seed + 7)
+    prompts = [[rng.randint(1, cfg.vocab_size - 1) for _ in range(64)]
+               for _ in range(4)]
+    want = [G.generate(p32, torch.tensor([p], device="cuda"), cfg32,
+                       max_new_tokens=32)[0, 64:].tolist() for p in prompts]
+    eng = E.InferenceEngine(p32, cfg32, slots=8, max_prompt_len=64,
+                            max_new_tokens=32, greedy=True, seed=seed)
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p) for p in prompts]
+    for _ in range(1000):
+        if all(r.done.is_set() for r in reqs):
+            break
+        eng.step()
+    wall = time.perf_counter() - t0
+    got = [list(r.tokens) for r in reqs]
+    match = [a == b for a, b in zip(got, want)]
+    _emit({"phase": "moe_engine", "dtype": "float32", "tf32": False, **_MOE,
+           "n_layers": cfg.n_layers, "prompt_lens": [64] * len(prompts),
+           "max_new_tokens": 32, "match_generate": match, "wall_s": wall})
+    if not all(match):
+        raise AssertionError("fp32 MoE engine tokens differ from generate()")
+
+
+def phase_entry():
+    """ray_tpu_torch.entry.entry() on the card: the GPT-2-small forward at
+    [4, 512], finite fp32 logits of shape [4, 512, vocab]."""
+    import torch
+
+    from ray_tpu_torch.entry import entry
+
+    fn, args = entry()
+    with torch.no_grad():
+        logits = fn(*args)
+    torch.cuda.synchronize()
+    ok = (list(logits.shape) == [4, 512, 50304]
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()))
+    _emit({"phase": "entry", "config": "gpt2-small", "tokens": [4, 512],
+           "logits_shape": list(logits.shape), "ok": ok})
+    if not ok:
+        raise AssertionError("entry()'s forward is wrong")
 
 
 def _grads(T, TR, params, batch, cfg):
@@ -628,6 +937,7 @@ def train_parity(T, TR, cfg, params, batch) -> dict:
     ratio["attn_grad"] = max(leaf_ratio.values())
     return {"rel_to_fp32": rel, "attn_leaf_ratio": leaf_ratio,
             "kernel_over_plain": ratio, "losses": losses,
+            "ratio_tol": _TRAIN_BF16_RATIO,
             "ok": all(ratio[k] <= _TRAIN_BF16_RATIO[k] for k in ratio)}
 
 
@@ -671,6 +981,49 @@ def _step_profile(step):
             "top_kernels": top}
 
 
+def _train_steps(fa, TR, cfg, params, batch, steps: int, profile: bool):
+    """``steps`` AdamW steps (lr 3e-4, bf16 first moment) through the
+    kernels on one fixed batch, in place on ``params``; each step's
+    metrics, launches and host wall (synchronized), the peak memory, and
+    with ``profile`` the last step under torch.profiler (_step_profile)."""
+    import torch
+
+    tx = TR.make_optimizer(3e-4, mu_dtype=torch.bfloat16)
+    state = {"step": torch.zeros((), dtype=torch.int32, device="cuda"),
+             "params": params, "opt_state": tx.init(params)}
+    step_fn = TR.make_train_step(cfg, tx)
+    metrics, launches, walls, prof = [], [], [], None
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        def one():
+            _, m = step_fn(state, batch)
+            metrics.append({k: v.item() for k, v in m.items()})
+        _zero_counts(fa)
+        torch.cuda.synchronize()
+        if profile and i == steps - 1:
+            prof = _step_profile(one)
+        else:
+            t0 = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        launches.append(_counts(fa))
+    peak = torch.cuda.max_memory_allocated()
+    del state, tx
+    torch.cuda.empty_cache()
+    if not len(metrics) == len(launches) == steps:
+        raise AssertionError(f"{len(metrics)} of {steps} train steps "
+                             f"reported their metrics")
+    losses = [m["loss"] for m in metrics]
+    norms = [m["grad_norm"] for m in metrics]
+    return {"losses": losses, "grad_norms": norms,
+            "finite": all(math.isfinite(x) for x in losses + norms),
+            "falling": losses[-1] < losses[0], "launches_per_step": launches,
+            "walls_ms": [w * 1e3 for w in walls],
+            "peak_mem_gib": peak / 2**30, "profile_last_step": prof,
+            "metrics": metrics}
+
+
 def phase_train(fa, T, TR, C, params, seed: int):
     """bench.py's llama3-1b training cell on the port:
       (a) one step's loss, flattened gradient and wq/wk/wv gradients in
@@ -687,8 +1040,6 @@ def phase_train(fa, T, TR, C, params, seed: int):
           tokens/s, MFU against 989 TFLOP/s from cfg.flops_per_token, peak
           memory, and the busy share of step 5 from torch.profiler.
     Params are updated in place: this phase runs last."""
-    import torch
-
     cfg = train_config(C)
     batch = train_batch(cfg, seed + 3)
 
@@ -698,52 +1049,132 @@ def phase_train(fa, T, TR, C, params, seed: int):
     grad_launches = _counts(fa)  # the plain and fp32 steps launch nothing
 
     # (b), (c), (d): optimizer steps through the kernels
-    tx = TR.make_optimizer(3e-4, mu_dtype=torch.bfloat16)
-    state = {"step": torch.zeros((), dtype=torch.int32, device="cuda"),
-             "params": params, "opt_state": tx.init(params)}
-    step_fn = TR.make_train_step(cfg, tx)
-    losses, norms, launches, walls, prof = [], [], [], [], None
-    torch.cuda.reset_peak_memory_stats()
-    for i in range(_TRAIN_STEPS):
-        def one():
-            _, m = step_fn(state, batch)
-            losses.append(m["loss"].item())
-            norms.append(m["grad_norm"].item())
-        _zero_counts(fa)
-        torch.cuda.synchronize()
-        if i == _TRAIN_STEPS - 1:
-            prof = _step_profile(one)
-        else:
-            t0 = time.perf_counter()
-            one()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        launches.append(_counts(fa))
-    peak = torch.cuda.max_memory_allocated()
-    if not len(losses) == len(norms) == len(launches) == _TRAIN_STEPS:
-        raise AssertionError(f"{len(losses)} of {_TRAIN_STEPS} train steps "
-                             f"reported their metrics")
-    step_s = sum(walls[1:]) / len(walls[1:])
+    run = _train_steps(fa, TR, cfg, params, batch, _TRAIN_STEPS, True)
+    walls = run.pop("walls_ms")
+    step_ms = sum(walls[1:]) / len(walls[1:])
     flops_step = cfg.flops_per_token(2048) * 4 * 2048
-    finite = all(math.isfinite(x) for x in losses + norms)
-    falling = losses[-1] < losses[0]
     launches_ok = all(c == _TRAIN_LAUNCHES
-                      for c in [grad_launches, *launches])
+                      for c in [grad_launches, *run["launches_per_step"]])
+    run["profile_step5"] = run.pop("profile_last_step")
+    del run["metrics"]
     _emit({"phase": "train", "config": "llama3-1b", "batch": [4, 2048],
            "param_dtype": "bfloat16", "mu_dtype": "bfloat16", "remat": True,
            "lr": 3e-4, "parity": parity, "ratio_tol": _TRAIN_BF16_RATIO,
-           "grad_launches": grad_launches,
-           "losses": losses, "grad_norms": norms, "finite": finite,
-           "falling": falling, "launches_per_step": launches,
-           "launches_want": _TRAIN_LAUNCHES, "first_step_ms": walls[0] * 1e3,
-           "ms_per_step": step_s * 1e3,
-           "tokens_per_s": 4 * 2048 / step_s,
+           "grad_launches": grad_launches, **run,
+           "launches_want": _TRAIN_LAUNCHES, "first_step_ms": walls[0],
+           "ms_per_step": step_ms,
+           "tokens_per_s": 4 * 2048 / step_ms * 1e3,
            "flops_per_step": flops_step,
-           "mfu": flops_step / step_s / _PEAK_FLOPS["bfloat16"],
-           "peak_mem_gib": peak / 2**30, "profile_step5": prof})
-    if not (parity["ok"] and finite and falling and launches_ok):
+           "mfu": flops_step / step_ms * 1e3 / _PEAK_FLOPS["bfloat16"]})
+    if not (parity["ok"] and run["finite"] and run["falling"]
+            and launches_ok):
         raise AssertionError("train phase failed")
-    return launches[0]
+    return run["launches_per_step"][0]
+
+
+def _active_flops_per_token(cfg, seq: int) -> float:
+    """Training FLOPs a token needs in the MoE model: 6 x the parameters
+    it multiplies by (q/k/v/o projections, the router, its k experts'
+    SwiGLU, the tied head) + the attention term of cfg.flops_per_token
+    (12 L d T). Expert places left empty by the capacity, and the experts a
+    token is not routed to, are not counted."""
+    d, L, hd = cfg.d_model, cfg.n_layers, cfg.head_dim
+    attn = d * cfg.n_heads * hd * 2 + 2 * d * cfg.kv_heads * hd
+    per_layer = attn + d * cfg.moe_experts + cfg.moe_top_k * 3 * d * cfg.d_ff
+    return 6.0 * (L * per_layer + cfg.vocab_size * d) + 12.0 * L * d * seq
+
+
+def phase_moe_train(fa, T, TR, cfg, params, seed: int):
+    """The MoE model at _MOE_TRAIN_LAYERS layers (``cfg``, bf16 params,
+    remat "nothing"), batch 4 x 2048: train check (a) within
+    _TRAIN_BF16_RATIO (the unbroken kernels over 2 weight seeds x 2 batches
+    read loss 0.114-0.942, gradient 0.935-0.997 and wq/wk/wv leaves at most
+    1.001 there, under the dense bars; B2's mutant reaches 1.89 on wq, B3's
+    1.26 on wk); _TRAIN_STEPS AdamW steps on one fixed batch with
+    finite, falling losses and a finite moe_aux; launches per step exactly
+    _MOE_TRAIN_LAUNCHES; ms per step (steps 2-5), tokens/s, peak memory and
+    MFU of the active work (_active_flops_per_token; cfg.flops_per_token
+    is the reference's and counts no experts). Params change in place."""
+    batch = train_batch(cfg, seed + 3)
+    _zero_counts(fa)
+    parity = train_parity(T, TR, cfg, params, batch)
+    grad_launches = _counts(fa)
+    run = _train_steps(fa, TR, cfg, params, batch, _TRAIN_STEPS, False)
+    walls = run.pop("walls_ms")
+    step_ms = sum(walls[1:]) / len(walls[1:])
+    aux = [m["moe_aux"] for m in run.pop("metrics")]
+    flops_step = _active_flops_per_token(cfg, 2048) * 4 * 2048
+    launches_ok = all(c == _MOE_TRAIN_LAUNCHES
+                      for c in [grad_launches, *run["launches_per_step"]])
+    aux_finite = all(math.isfinite(x) for x in aux)
+    del run["profile_last_step"]
+    _emit({"phase": "moe_train", "config": "llama3-1b", **_MOE,
+           "n_layers": cfg.n_layers, "batch": [4, 2048],
+           "param_dtype": "bfloat16", "mu_dtype": "bfloat16", "remat": True,
+           "lr": 3e-4, "parity": parity, "grad_launches": grad_launches,
+           **run, "moe_aux": aux, "moe_aux_finite": aux_finite,
+           "launches_want": _MOE_TRAIN_LAUNCHES, "first_step_ms": walls[0],
+           "ms_per_step": step_ms, "tokens_per_s": 4 * 2048 / step_ms * 1e3,
+           "active_flops_per_step": flops_step,
+           "flops_formula": "4*2048*(6*(L*(2*d*H*hd + 2*d*KV*hd + d*E"
+                            " + k*3*d*ff) + V*d) + 12*L*d*2048)",
+           "mfu_active": flops_step / step_ms * 1e3
+           / _PEAK_FLOPS["bfloat16"]})
+    if not (parity["ok"] and run["finite"] and run["falling"] and aux_finite
+            and launches_ok):
+        raise AssertionError("moe_train phase failed")
+    return run["launches_per_step"][0]
+
+
+def phase_train_dots(fa, T, TR, C, params, seed: int):
+    """Phase train's cell with remat_policy "dots" (keep the outputs of
+    aten.mm, recompute the rest) from the same params and batch:
+      (a) one step's loss and gradients under "dots" and under "nothing"
+          through the kernels must agree within _DOTS_TOL; the "dots" step
+          launches B1 32, B2 16 and B3 16 times;
+      (b) three AdamW steps each way from copies of the params: launches
+          per step, ms per step (step 2), peak memory, and step 3's device
+          time and busy share from torch.profiler, side by side.
+    ``params`` are left as they were."""
+    import torch
+
+    nothing = train_config(C)
+    dots = dataclasses.replace(nothing, remat_policy="dots")
+    batch = train_batch(nothing, seed + 3)
+    loss_n, grads_n = _grads(T, TR, params, batch, nothing)
+    _zero_counts(fa)
+    loss_d, grads_d = _grads(T, TR, params, batch, dots)
+    grad_launches = _counts(fa)
+    direct = {"loss": abs(loss_d.item() - loss_n.item()),
+              "grad": _tree_rel(grads_d, grads_n)}
+    del grads_n, grads_d
+    torch.cuda.empty_cache()
+    parity_ok = all(x <= _DOTS_TOL for x in direct.values())
+
+    runs = {}
+    for tag, cfg in (("nothing", nothing), ("dots", dots)):
+        copy = TR.tree_map(lambda w: w.clone(), params)
+        run = _train_steps(fa, TR, cfg, copy, batch, 3, True)
+        del copy, run["metrics"]
+        prof = run.pop("profile_last_step")
+        run["profile_step3"] = {k: prof[k] for k in (
+            "profiled_wall_ms", "device_ms", "device_busy_share")}
+        torch.cuda.empty_cache()
+        runs[tag] = run
+    launches_ok = all(c == _TRAIN_LAUNCHES for c in
+                      [grad_launches, *runs["dots"]["launches_per_step"]])
+    _emit({"phase": "train_dots", "config": "llama3-1b", "batch": [4, 2048],
+           "remat_policy": "dots", "dots_vs_nothing": direct,
+           "tol": _DOTS_TOL, "grad_launches": grad_launches,
+           "launches_want": _TRAIN_LAUNCHES, "runs": runs,
+           "ms_per_step": {k: r["walls_ms"][-1] for k, r in runs.items()},
+           "device_ms_step3": {k: r["profile_step3"]["device_ms"]
+                               for k, r in runs.items()},
+           "peak_mem_gib": {k: r["peak_mem_gib"] for k, r in runs.items()}})
+    if not (parity_ok and launches_ok and
+            all(r["finite"] for r in runs.values())):
+        raise AssertionError("train_dots phase failed")
+    return runs["dots"]["launches_per_step"][0]
 
 
 def run(seed: int) -> int:
@@ -763,6 +1194,7 @@ def run(seed: int) -> int:
     from ray_tpu_torch.models import config as C
     from ray_tpu_torch.models import engine as E
     from ray_tpu_torch.models import generate as G
+    from ray_tpu_torch.models import moe as M
     from ray_tpu_torch.models import training as TR
     from ray_tpu_torch.models import transformer as T
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
@@ -795,15 +1227,19 @@ def run(seed: int) -> int:
     def attempt(name, fn, *args):
         # a failed phase is reported and the later phases still run, so one
         # run shows every fault; the script then exits non-zero
+        t0 = time.perf_counter()
         try:
             return fn(*args)
         except Exception:
             traceback.print_exc()
             failed.append(name)
             return None
+        finally:
+            _emit({"phase_wall": name, "s": time.perf_counter() - t0})
 
     rows = attempt("kernels", phase_kernels, fa, seed)
     bwd_rows = attempt("kernels_bwd", phase_kernels_bwd, fa, seed)
+    attempt("entry", phase_entry)
 
     cfg = C.get_config("llama3-1b", param_dtype=torch.bfloat16)
     params = T.init_params(torch.Generator(device="cuda").manual_seed(seed),
@@ -818,6 +1254,37 @@ def run(seed: int) -> int:
     del p32
     torch.cuda.empty_cache()
     attempt("serving", phase_serving, E, cfg, params, seed)
+    torch.cuda.empty_cache()
+
+    # Mixture-of-Experts: the 16-layer model (13.7 GB in bf16), then the
+    # 4-layer one that trains
+    moe = moe_config(C)
+    moe_params = attempt("moe_init", T.init_params, torch.Generator(
+        device="cuda").manual_seed(seed + 100), moe, "cuda")
+    moe_launches = moe_train_launches = None
+    if moe_params is not None:
+        attempt("moe_layer", phase_moe_layer, M, moe, moe_params, seed)
+        moe_launches = attempt("moe_forward", phase_moe_forward, fa, T, M,
+                               moe, moe_params, seed)
+        torch.cuda.empty_cache()
+        attempt("moe_serving", phase_serving, E, moe, moe_params, seed,
+                "moe_serving")
+    del moe_params
+    torch.cuda.empty_cache()
+    moe4 = moe_train_config(C)
+    moe_params = attempt("moe_init", T.init_params, torch.Generator(
+        device="cuda").manual_seed(seed + 101), moe4, "cuda")
+    if moe_params is not None:
+        attempt("moe_engine", phase_moe_engine, E, G, moe4, moe_params,
+                seed)
+        torch.cuda.empty_cache()
+        moe_train_launches = attempt("moe_train", phase_moe_train, fa, T,
+                                     TR, moe4, moe_params, seed)
+    del moe_params
+    torch.cuda.empty_cache()
+
+    dots_launches = attempt("train_dots", phase_train_dots, fa, T, TR, C,
+                            params, seed)
     torch.cuda.empty_cache()
     train_launches = attempt("train", phase_train, fa, T, TR, C, params,
                              seed)
@@ -837,8 +1304,11 @@ def run(seed: int) -> int:
         "library_ms": main["library_ms"],
         "tflops_per_s": main["tflops_per_s"],
         "bound_share": main["bound_ms"] / main["ms"],
-        "launches_by_path": {"forward": launches,
-                             "train_step": train_launches["flash_fwd"]}}]
+        "launches_by_path": {
+            "forward": launches, "train_step": train_launches["flash_fwd"],
+            "moe_forward": moe_launches,
+            "moe_train_step": moe_train_launches["flash_fwd"],
+            "train_dots_step": dots_launches["flash_fwd"]}}]
     for name, line_no, source, err in (
             ("flash_bwd_dq", 87, "flash_bwd.cu", "dq_max_abs_err"),
             ("flash_bwd_dkv", 111, "flash_bwd_dkv.cu", None)):
@@ -855,7 +1325,11 @@ def run(seed: int) -> int:
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
             "tflops_per_s": k["tflops_per_s"],
-            "bound_share": k["bound_ms"] / k["ms"]})
+            "bound_share": k["bound_ms"] / k["ms"],
+            "launches_by_path": {
+                "train_step": train_launches[name],
+                "moe_train_step": moe_train_launches[name],
+                "train_dots_step": dots_launches[name]}})
     _emit({"kernels": line})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -21,22 +21,28 @@ they apply, for each mutant:
   train       chip_smoke.py's train check (a), ``chip_smoke.train_parity``:
               one llama3-1b step (batch 4 x 2048, bf16, remat) through the
               kernels and through plain attention, each against the fp32
-              step, kernel/plain within chip_smoke's _TRAIN_BF16_RATIO.
+              step, kernel/plain within chip_smoke's _TRAIN_BF16_RATIO;
+  moe_forward chip_smoke.py's MoE forward check, ``chip_smoke.
+              moe_forward_parity``: the 16-layer llama3-1b model with 8
+              experts at [4, 2048], within _MOE_FWD_BF16_RATIO;
+  moe_train   train check (a) on chip_smoke.py's 4-layer MoE cell
+              (``moe_train_config``), within _TRAIN_BF16_RATIO.
 
-The baseline's train check runs over every --weight-seeds x --batch-seeds
-pair: the spread of the plain bf16 step that the ratios are set from; its
-other checks, and every mutant's, run at chip_smoke's own seeds (weight seed
---seed, batch seed --seed + 3). The mutants, each a few edited lines of one
+The baseline's train, moe_forward and moe_train checks run over every
+--weight-seeds x --batch-seeds pair: the spread of the plain bf16 step or
+forward that the ratios are set from; its other checks, and every mutant's,
+run at chip_smoke's own seeds (weight seed --seed, batch seed --seed + 3;
+for the MoE checks --seed + 100 and + 101, as chip_smoke.py draws them). The mutants, each a few edited lines of one
 ``csrc`` source in a copy of ``ray_tpu_torch`` in a temporary directory,
 built there with ``nvcc``:
 
   b1_skip_k_tile   B1 masks out K/V tile 1 (keys 128-255) for every query
-                   block (check_fwd, forward)
+                   block (check_fwd, forward, moe_forward)
   b2_skip_k_tile   B2 leaves out K/V tile 1 (keys 64-127: P = 0 there, so
                    neither dS nor dQ sees them) for every query block
-                   (check_bwd, train)
+                   (check_bwd, train, moe_train)
   b3_skip_q_tile   B3 leaves out the Q/dO tile at query 1024 for every key
-                   block (check_bwd, train)
+                   block (check_bwd, train, moe_train)
 
 One JSON line per check run. Exits non-zero unless every check passes the
 baseline and refuses every mutant it is run on. Needs an NVIDIA GPU and
@@ -66,18 +72,19 @@ MUTANTS = {
         ("      return k0 + BN > t_k || (causal && k0 + BN - 1 > row_lo);\n",
          "      return k0 == BN || k0 + BN > t_k || "
          "(causal && k0 + BN - 1 > row_lo);\n")],
-        ["check_fwd", "forward"]),
+        ["check_fwd", "forward", "moe_forward"]),
     "b2_skip_k_tile": ("flash_bwd.cu", [
         ("        float p = fast_exp2(fmaf(sc[i], sl2, -lse2[h]));\n",
          "        float p = k0 == BN ? 0.f : "
          "fast_exp2(fmaf(sc[i], sl2, -lse2[h]));\n")],
-        ["check_bwd", "train"]),
+        ["check_bwd", "train", "moe_train"]),
     "b3_skip_q_tile": ("flash_bwd_dkv.cu", [
         ("      const bool skip = causal && kw > q0 + BM - 1;\n",
          "      const bool skip = (causal && kw > q0 + BM - 1) || q0 == 1024;\n")],
-        ["check_bwd", "train"]),
+        ["check_bwd", "train", "moe_train"]),
 }
-CHECKS = ["check_fwd", "forward", "check_bwd", "train"]
+CHECKS = ["check_fwd", "forward", "check_bwd", "train", "moe_forward",
+          "moe_train"]
 
 # argv: package root, seed, weight seeds, batch seeds, checks (JSON lists).
 # The package root comes first on sys.path, so ray_tpu_torch is the copy
@@ -88,6 +95,7 @@ import torch
 import chip_smoke as cs
 fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
 from ray_tpu_torch.models import config as C
+from ray_tpu_torch.models import moe as M
 from ray_tpu_torch.models import training as TR
 from ray_tpu_torch.models import transformer as T
 assert fa.__file__.startswith(sys.argv[1]), fa.__file__
@@ -138,6 +146,26 @@ if "train" in checks:
         for bs in json.loads(sys.argv[4]):
             par = cs.train_parity(T, TR, cfg, params, cs.train_batch(cfg, bs))
             print(json.dumps({"check": "train", "weight_seed": ws,
+                              "batch_seed": bs, **par}), flush=True)
+        del params
+        torch.cuda.empty_cache()
+
+for check, cfg, offset in (("moe_forward", cs.moe_config(C), 100),
+                           ("moe_train", cs.moe_train_config(C), 101)):
+    if check not in checks:
+        continue
+    for ws in json.loads(sys.argv[3]):
+        params = T.init_params(
+            torch.Generator(device="cuda").manual_seed(ws + offset), cfg,
+            device="cuda")
+        for bs in json.loads(sys.argv[4]):
+            if check == "moe_forward":
+                par = cs.moe_forward_parity(
+                    T, M, cfg, params, cs.moe_forward_tokens(cfg, bs - 3))
+            else:
+                par = cs.train_parity(T, TR, cfg, params,
+                                      cs.train_batch(cfg, bs))
+            print(json.dumps({"check": check, "weight_seed": ws,
                               "batch_seed": bs, **par}), flush=True)
         del params
         torch.cuda.empty_cache()

@@ -2,10 +2,11 @@
 
 The JAX package ``ray_tpu`` stays the reference; this package imports
 nothing from it. What is ported so far is the decoder's inference and
-training stack (``models``) and the flash-attention kernels, forward and
-backward (``ops``), which run as hand-written CUDA on the card and as their
-plain PyTorch versions on CPU tensors. Entry points run on CUDA unless the
-caller passes ``device="cpu"``.
+training stack with its dense or Mixture-of-Experts FFN (``models``), the
+single-device entry point (``entry``) and the flash-attention kernels,
+forward and backward (``ops``), which run as hand-written CUDA on the card
+and as their plain PyTorch versions on CPU tensors. Entry points run on
+CUDA unless the caller passes ``device="cpu"``.
 """
 
 from ray_tpu_torch import models, ops

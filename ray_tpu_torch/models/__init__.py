@@ -1,10 +1,10 @@
 """Built-in model family of the port: the Llama-style decoder.
 
-Mirrors ``ray_tpu/models/__init__.py`` for what is ported: configs, the
-forward and loss, the train step, KV-cache generation and the
-continuous-batching engine. MoE, the MLM helpers and the sharding helpers
-(``param_logical_axes``, ``state_shardings``, ``batch_sharding``) are later
-slices (ROADMAP.md).
+Mirrors ``ray_tpu/models/__init__.py`` for what runs on one device:
+configs, the forward and loss (dense or Mixture-of-Experts FFN), the train
+step, KV-cache generation, the continuous-batching engine and the MLM
+masking. The sharding helpers (``param_logical_axes``, ``state_shardings``,
+``batch_sharding``) wait for the parallel layer (ROADMAP.md).
 """
 
 from ray_tpu_torch.models.config import (
@@ -18,6 +18,7 @@ from ray_tpu_torch.models.config import (
     llama3_70b_config,
     tiny_config,
 )
+from ray_tpu_torch.models.mlm import mask_tokens
 # NOTE: generate() itself is not re-exported, as in the reference: it would
 # shadow the ray_tpu_torch.models.generate submodule.
 from ray_tpu_torch.models.generate import decode_step, init_cache, prefill
@@ -38,7 +39,7 @@ from ray_tpu_torch.models.training import (
 __all__ = [
     "TransformerConfig", "get_config", "PRESETS", "tiny_config",
     "gpt2_small_config", "llama3_1b_config", "llama3_8b_config",
-    "llama3_70b_config", "bert_base_config",
+    "llama3_70b_config", "bert_base_config", "mask_tokens",
     "forward", "init_params", "loss_fn", "Transformer",
     "prefill", "decode_step", "init_cache", "InferenceEngine",
     "make_optimizer", "make_train_step", "make_eval_step",

@@ -1,7 +1,8 @@
 """Model configurations: the port of ``ray_tpu/models/config.py``.
 
 The same dataclass, presets and parameter arithmetic, with torch dtypes.
-Mixture-of-Experts configs are refused until MoE is ported.
+``num_params`` and ``flops_per_token`` are the reference's for MoE configs
+too: one dense FFN's 3*d*ff per layer, no experts and no router.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ class TransformerConfig:
     # False -> bidirectional (encoder / BERT-class) attention.
     causal: bool = True
     # Checkpoint each layer (torch.utils.checkpoint) when autograd is on.
-    # "nothing": rematerialize everything; "dots" is not ported yet.
+    # "nothing": rematerialize everything; "dots": save the outputs of
+    # products without batch dimensions, recompute the rest.
     remat: bool = True
     remat_policy: str = "nothing"
     # "auto": the flash kernel for CUDA tensors, plain attention for CPU
@@ -43,12 +45,6 @@ class TransformerConfig:
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
-
-    def __post_init__(self):
-        if self.moe_experts:
-            raise NotImplementedError(
-                "Mixture-of-Experts (moe_experts > 0) is not ported yet: "
-                "ROADMAP.md queue A, 'MoE FFN (ray_tpu/models/moe.py)'")
 
     @property
     def kv_heads(self) -> int:

@@ -1,0 +1,51 @@
+"""Masked-language-model batch preparation: the port of ``ray_tpu/models/mlm.py``.
+
+A copy of the reference's ``mask_tokens``, numpy only (the port imports
+nothing of the JAX package, even a module without JAX in it): the same
+draws from the same ``np.random.Generator`` give the same arrays. It pairs
+with ``transformer.loss_fn``'s inputs/targets/mask form for encoder configs
+(``causal=False``): of the selected positions, 80% become [MASK], 10% a
+random token, 10% stay unchanged (BERT's recipe).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+
+
+def mask_tokens(tokens: np.ndarray, *, mask_id: int, vocab_size: int,
+                mask_prob: float = 0.15,
+                rng: Optional[np.random.Generator] = None,
+                special_ids=()) -> Dict[str, np.ndarray]:
+    """tokens [B, T] -> {"inputs", "targets", "mask"} for loss_fn.
+
+    ``mask`` is 1.0 exactly at the selected (predict-me) positions;
+    ``inputs`` applies the 80/10/10 corruption; ``targets`` is the
+    original token everywhere (loss_fn ignores unmasked positions via
+    the mask).
+    """
+    if rng is None:  # unseeded: repeated calls must mask DIFFERENT
+        rng = np.random.default_rng()  # positions or MLM loses coverage
+    tokens = np.asarray(tokens)
+    selectable = np.ones(tokens.shape, bool)
+    for sid in special_ids:
+        selectable &= tokens != sid
+    sel = (rng.random(tokens.shape) < mask_prob) & selectable
+    # guarantee at least one prediction per row (a zero-mask row would
+    # contribute nothing and skew the mean loss denominator)
+    for i in range(tokens.shape[0]):
+        if not sel[i].any() and selectable[i].any():
+            sel[i, rng.choice(np.flatnonzero(selectable[i]))] = True
+
+    inputs = tokens.copy()
+    u = rng.random(tokens.shape)
+    to_mask = sel & (u < 0.8)
+    to_rand = sel & (u >= 0.8) & (u < 0.9)
+    inputs[to_mask] = mask_id
+    inputs[to_rand] = rng.integers(0, vocab_size,
+                                   size=int(to_rand.sum()))
+    return {"inputs": inputs.astype(np.int32),
+            "targets": tokens.astype(np.int32),
+            "mask": sel.astype(np.float32)}

@@ -1,0 +1,179 @@
+"""Mixture-of-Experts FFN: the port of ``ray_tpu/models/moe.py``.
+
+The same function as the reference's: fp32 router and softmax over all E
+experts, top-k with the combine weights renormalised to sum to 1 (Mixtral),
+per-row expert capacity C = max(1, ceil(T*k/E * capacity_factor)) claimed
+in token order, then slot order, overflowing slots dropped (they contribute
+zero), SwiGLU experts in ``cfg.dtype``, an fp32 combine, and the Switch
+load-balance term E * sum_e frac_e * mean_p_e.
+
+The reference writes dispatch and combine as products with a one-hot
+[B, T*k, E, C] slot tensor (static shapes for the TPU's matrix unit). At
+llama3-1b width that tensor is 335 MB a layer and each of the two products
+344 GFLOP, while every output element has at most one non-zero term in
+those sums. ``moe_ffn`` computes the same function from an index: each
+kept slot's place in an [E, B*C] expert batch, one gather of the token rows
+into it, ``torch.bmm`` per product, and one gather back, times the slot's
+weight. ``moe_ffn_dense`` is the literal port of the reference's einsums,
+kept for the tests and the card's checks; no forward path calls it.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+
+Params = Dict[str, Any]
+
+
+def _silu(x):
+    # jax.nn.silu's own definition, x * (1 / (1 + exp(-x))), one op at a
+    # time in x's dtype: in bf16 it rounds where the reference rounds
+    # (F.silu rounds once and disagrees with it on ~40% of bf16 inputs)
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+def moe_param_shapes(cfg) -> Params:
+    """One layer stack of MoE params: router [L, d, E] and the experts'
+    SwiGLU [L, E, ...]."""
+    L, d, ff, E = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.moe_experts
+    return {"router": (L, d, E), "w_gate": (L, E, d, ff),
+            "w_up": (L, E, d, ff), "w_down": (L, E, ff, d)}
+
+
+def init_moe_params(rng: torch.Generator, cfg, device) -> Params:
+    """Random MoE params with the reference's scales (its bits are not
+    reproduced: numbers come from ``rng``, on the generator's device)."""
+    L, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
+    in_scale = d ** -0.5
+    out_scale = (2 * L) ** -0.5 * d ** -0.5 * (ff / d) ** 0.5
+    scales = {"router": in_scale, "w_gate": in_scale, "w_up": in_scale,
+              "w_down": out_scale}
+    out = {}
+    for name, shape in moe_param_shapes(cfg).items():
+        x = torch.randn(shape, generator=rng, device=rng.device,
+                        dtype=torch.float32) * scales[name]
+        out[name] = x.to(device, cfg.param_dtype)
+    return out
+
+
+def capacity(T: int, cfg) -> int:
+    """Slots per expert and batch row for a call of length T."""
+    return max(1, math.ceil(T * cfg.moe_top_k / cfg.moe_experts
+                            * cfg.moe_capacity_factor))
+
+
+def router_probs(h, router) -> torch.Tensor:
+    """h [B, T, d] -> softmax over the experts [B, T, E], in fp32."""
+    return torch.softmax(h.float() @ router.float(), dim=-1)
+
+
+def top_k(probs, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (weights [B, T, k] renormalised to sum to 1, expert ids [B, T, k]),
+    largest first. Equal probabilities go to the lower expert id, as
+    ``jax.lax.top_k`` breaks ties (``torch.topk`` promises no order there),
+    hence a stable descending sort."""
+    p, i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    p, i = p[..., :k], i[..., :k]
+    return p / torch.clamp(p.sum(-1, keepdim=True), min=1e-9), i
+
+
+def assign_slots(top_i, E: int, C: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity per batch row: the k slots of each token, flattened in token
+    order then slot order into a stream of S = T*k, claim their expert's
+    places first come first served. -> (place [B, S] of each slot within
+    its expert, kept [B, S] bool: place < C)."""
+    B = top_i.shape[0]
+    ids = top_i.reshape(B, -1)
+    onehot = torch.nn.functional.one_hot(ids, E)              # [B, S, E]
+    place = torch.cumsum(onehot, dim=1).gather(-1, ids[..., None])[..., 0] - 1
+    return place, place < C
+
+
+def load_balance(probs, top_i, E: int):
+    """Switch aux loss: E * sum_e (share of tokens whose top-1 is e) * (mean
+    router probability of e); 1.0 at perfect balance."""
+    top1 = torch.nn.functional.one_hot(top_i[..., 0], E).float()
+    frac = top1.reshape(-1, E).mean(dim=0)
+    mean_p = probs.reshape(-1, E).mean(dim=0)
+    return E * (frac * mean_p).sum()
+
+
+def moe_ffn(h, lp: Params, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One MoE FFN layer: h [B, T, d] -> (out [B, T, d] in h's dtype, aux
+    fp32 scalar). lp: one layer's {router [d, E], w_gate/w_up [E, d, ff],
+    w_down [E, ff, d]}.
+
+    Dispatch by index: the kept slot s of row b, routed to expert e at
+    place c, fills row b*C + c of expert e's batch; empty places read a
+    zero row. Expert e's output row comes back to slot s times the slot's
+    weight (fp32), the k slots of a token are summed, then cast."""
+    B, T, d = h.shape
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    C = capacity(T, cfg)
+    probs = router_probs(h, lp["router"])
+    top_p, top_i = top_k(probs, k)
+    place, kept = assign_slots(top_i, E, C)                      # [B, S]
+    S = T * k
+    rows = E * B * C
+    b = torch.arange(B, device=h.device)[:, None]
+    # each slot's row in the [E*B*C] expert batch; a dropped slot points at
+    # the extra row `rows`, which is zero on the way in and ignored after
+    dest = torch.where(kept, (top_i.reshape(B, S) * B + b) * C + place,
+                       rows)
+    token = b * T + torch.arange(S, device=h.device) // k
+    source = torch.full((rows + 1,), B * T, dtype=torch.long, device=h.device)
+    source.scatter_(0, dest.reshape(-1), token.reshape(-1))
+    h_rows = torch.cat([h.reshape(B * T, d), h.new_zeros(1, d)])
+    xin = h_rows[source[:rows]].reshape(E, B * C, d)
+    # each expert's SwiGLU on its B*C rows
+    gate = torch.bmm(xin, lp["w_gate"].to(h.dtype))
+    up = torch.bmm(xin, lp["w_up"].to(h.dtype))
+    out = torch.bmm(_silu(gate) * up, lp["w_down"].to(h.dtype)).reshape(
+        rows, d)
+    out = torch.cat([out, out.new_zeros(1, d)]).float()
+    y = out[dest] * top_p.reshape(B, S, 1)
+    y = y.reshape(B, T, k, d).sum(dim=2).to(h.dtype)
+    return y, load_balance(probs, top_i, E)
+
+
+def moe_ffn_dense(h, lp: Params, cfg):
+    """The reference's ``moe_ffn`` op for op: one-hot slot tensor, dispatch
+    and combine as einsums. It shares ``router_probs`` with ``moe_ffn`` (the
+    reference's einsum and softmax) so that both see the same bits; its
+    top-k (k rounds of argmax, which returns the first of equal maxima) and
+    capacity are its own. -> (out, aux, expert ids [B, T, k], kept [B, T*k]
+    bool), the last two for the checks that hold ``moe_ffn`` against it."""
+    B, T, d = h.shape
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    C = capacity(T, cfg)
+    dtype = h.dtype
+    probs = router_probs(h, lp["router"])
+    rest, ids = probs.clone(), []
+    for _ in range(k):
+        ids.append(rest.argmax(dim=-1))
+        rest = rest.scatter(-1, ids[-1][..., None], -1.0)
+    top_i = torch.stack(ids, dim=-1)
+    top_p = probs.gather(-1, top_i)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    oh = torch.nn.functional.one_hot(top_i, E).float().reshape(B, T * k, E)
+    pos = torch.cumsum(oh, dim=1) - 1.0
+    in_cap = (pos < C) * oh
+    # jax.nn.one_hot is all zeros outside [0, C); torch's refuses such
+    # classes, and in_cap is 0 wherever pos is outside
+    slot = torch.nn.functional.one_hot(pos.long().clamp(0, C - 1), C) \
+        .float() * in_cap[..., None]                           # [B, S, E, C]
+    hk = h[:, :, None, :].expand(B, T, k, d).reshape(B, T * k, d)
+    xin = torch.einsum("bsec,bsd->ebcd", slot.to(dtype), hk)
+    gate = torch.einsum("ebcd,edf->ebcf", xin, lp["w_gate"].to(dtype))
+    up = torch.einsum("ebcd,edf->ebcf", xin, lp["w_up"].to(dtype))
+    out = torch.einsum("ebcf,efd->ebcd", _silu(gate) * up,
+                       lp["w_down"].to(dtype))
+    combine = slot * top_p.reshape(B, T * k, 1, 1).float()
+    y = torch.einsum("ebcd,bsec->bsd", out.float(), combine)
+    y = y.reshape(B, T, k, d).sum(dim=2).to(dtype)
+    kept = in_cap.sum(dim=-1) > 0
+    return y, load_balance(probs, top_i, E), top_i, kept

@@ -235,8 +235,10 @@ def init_train_state(rng: torch.Generator, cfg: TransformerConfig, tx: AdamW,
 def make_train_step(cfg: TransformerConfig, tx: AdamW, mesh=None,
                     rules=None):
     """-> ``step(state, batch) -> (state, metrics)``. The state is updated
-    in place and returned; metrics are ``loss``, ``perplexity``,
-    ``grad_norm`` (of the raw grads, before the clip) and ``step``."""
+    in place and returned; metrics are ``loss_fn``'s (``loss`` is the cross
+    entropy; MoE adds ``moe_aux`` and ``total_loss``, the loss the gradient
+    is of), ``grad_norm`` (of the raw grads, before the clip) and
+    ``step``."""
     del rules
     _refuse_mesh(mesh)
 
@@ -257,8 +259,7 @@ def make_train_step(cfg: TransformerConfig, tx: AdamW, mesh=None,
                              state["opt_state"], params)
         del grads
         state["step"] += 1
-        return state, {"loss": loss.detach(),
-                       "perplexity": metrics["perplexity"].detach(),
+        return state, {**{k: v.detach() for k, v in metrics.items()},
                        "grad_norm": grad_norm, "step": state["step"].clone()}
 
     return step

@@ -2,24 +2,31 @@
 
 Plain functions on a params dict that keeps the reference's names and
 stacked ``[L, ...]`` shapes (``embed``, ``layers/{attn_norm, wq, wk, wv, wo,
-mlp_norm, w_gate, w_up, w_down}``, ``final_norm``, optional ``lm_head``);
-``Transformer`` is an ``nn.Module`` holding the same tensors. A Python loop
-over the layer index takes the place of ``lax.scan``; with ``cfg.remat`` each
-layer runs under ``torch.utils.checkpoint``, the counterpart of
-``jax.checkpoint`` with policy ``"nothing"``. Numerics follow the reference:
-compute in ``cfg.dtype``, RMSNorm statistics, softmax and logits in fp32.
+mlp_norm, w_gate, w_up, w_down}``, plus ``router`` and per-expert FFN
+weights for MoE, ``final_norm``, optional ``lm_head``); ``Transformer`` is an
+``nn.Module`` holding the same tensors. A Python loop over the layer index
+takes the place of ``lax.scan``; with ``cfg.remat`` each layer runs under
+``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``: policy
+``"nothing"`` recomputes the whole layer, ``"dots"`` keeps the outputs of
+products without batch dimensions (``dots_with_no_batch_dims_saveable``).
+Numerics follow the reference: compute in ``cfg.dtype``, RMSNorm
+statistics, softmax, router and logits in fp32.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.config import TransformerConfig
+from ray_tpu_torch.models.moe import (_silu, init_moe_params, moe_ffn,
+                                      moe_param_shapes)
 from ray_tpu_torch.ops.flash_attention import flash_attention
 from ray_tpu_torch.parallel.ring import reference_attention
 
@@ -40,12 +47,14 @@ def param_shapes(cfg: TransformerConfig) -> Params:
             "wv": (L, d, KV, hd),
             "wo": (L, H, hd, d),
             "mlp_norm": (L, d),
-            "w_gate": (L, d, ff),
-            "w_up": (L, d, ff),
-            "w_down": (L, ff, d),
         },
         "final_norm": (d,),
     }
+    if cfg.moe_experts:
+        shapes["layers"].update(moe_param_shapes(cfg))
+    else:
+        shapes["layers"].update({"w_gate": (L, d, ff), "w_up": (L, d, ff),
+                                 "w_down": (L, ff, d)})
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, v)
     return shapes
@@ -79,10 +88,15 @@ def init_params(rng: torch.Generator, cfg: TransformerConfig,
         "wv": normal(ls["wv"], in_scale),
         "wo": normal(ls["wo"], out_scale),
         "mlp_norm": ones(ls["mlp_norm"]),
-        "w_gate": normal(ls["w_gate"], in_scale),
-        "w_up": normal(ls["w_up"], in_scale),
-        "w_down": normal(ls["w_down"], out_scale * (ff / d) ** 0.5),
     }
+    if cfg.moe_experts:
+        lay.update(init_moe_params(rng, cfg, dev))
+    else:
+        lay.update({
+            "w_gate": normal(ls["w_gate"], in_scale),
+            "w_up": normal(ls["w_up"], in_scale),
+            "w_down": normal(ls["w_down"], out_scale * (ff / d) ** 0.5),
+        })
     params: Params = {
         "embed": normal(shapes["embed"], d ** -0.5),
         "layers": lay,
@@ -197,16 +211,11 @@ def attn_out(o, lp, cfg: TransformerConfig):
         -1, wo.shape[-1])
 
 
-def _silu(x):
-    # jax.nn.silu's own definition, x * (1 / (1 + exp(-x))), one op at a
-    # time in x's dtype: in bf16 it rounds where the reference rounds
-    # (F.silu rounds once and disagrees with it on ~40% of bf16 inputs)
-    return x * torch.reciprocal(1 + torch.exp(-x))
-
-
 def ffn_block(h, lp, cfg: TransformerConfig):
-    """SwiGLU FFN -> (down, aux); shared by the forward and inference. The
-    aux term (MoE load balance) is 0 for the dense FFN."""
+    """SwiGLU (or MoE) FFN -> (down, aux); shared by the forward and
+    inference. The aux term (MoE load balance) is 0 for the dense FFN."""
+    if cfg.moe_experts:
+        return moe_ffn(h, lp, cfg)
     gate = h @ lp["w_gate"].to(cfg.dtype)
     up = h @ lp["w_up"].to(cfg.dtype)
     down = (_silu(gate) * up) @ lp["w_down"].to(cfg.dtype)
@@ -226,6 +235,26 @@ def embed_tokens(params: Params, tokens, cfg: TransformerConfig):
 
 
 # ---- forward ---------------------------------------------------------------
+
+# remat_policy="dots": jax.checkpoint_policies.dots_with_no_batch_dims_saveable
+# saves the outputs of dot_generals without batch dimensions: here aten.mm
+# and addmm (the q/k/v/o projections, the dense FFN, the MoE router).
+# Batched products (aten.bmm: the MoE experts, plain attention), the flash
+# Function (a pallas_call is no dot_general) and every elementwise op are
+# recomputed, allocations included: B1 writes its output through ctypes
+# into a torch.empty, so a cached allocation would hand the recompute a
+# tensor the kernel has already filled.
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
+                                  _dots_policy)
+
 
 def _block(x, lp: Params, cfg: TransformerConfig, positions):
     """One decoder layer: -> (x, aux), the scanned body of the reference."""
@@ -250,10 +279,9 @@ def forward(params: Params, tokens, cfg: TransformerConfig, mesh=None,
     load-balance loss (0.0 for the dense FFN)."""
     x = embed_tokens(params, tokens, cfg)  # [B, T, d]
     _select_attention(cfg, x.device, mesh)  # refuse what is not ported first
-    if cfg.remat and cfg.remat_policy == "dots":
-        raise NotImplementedError(
-            "remat_policy='dots' (save the matmul outputs) is not ported "
-            "yet: ROADMAP.md queue A; 'nothing' rematerializes every layer")
+    # any policy but "dots" is "nothing", as in the reference
+    kw = ({"context_fn": _DOTS_CONTEXT} if cfg.remat_policy == "dots"
+          else {})
     positions = torch.arange(x.shape[1], device=x.device)
     # jax.checkpoint's counterpart; without autograd there is nothing to save
     remat = cfg.remat and torch.is_grad_enabled()
@@ -262,7 +290,7 @@ def forward(params: Params, tokens, cfg: TransformerConfig, mesh=None,
         lp = layer(params, i)
         if remat:
             x, layer_aux = checkpoint(_block, x, lp, cfg, positions,
-                                      use_reentrant=False)
+                                      use_reentrant=False, **kw)
         else:
             x, layer_aux = _block(x, lp, cfg, positions)
         aux = aux + layer_aux
@@ -292,4 +320,9 @@ def loss_fn(params: Params, batch: Dict[str, Any], cfg: TransformerConfig,
         loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     else:
         loss = nll.mean()
-    return loss, {"loss": loss, "perplexity": torch.exp(loss)}
+    metrics = {"loss": loss, "perplexity": torch.exp(loss)}
+    if cfg.moe_experts:
+        metrics["moe_aux"] = aux
+        loss = loss + cfg.moe_aux_weight * aux
+        metrics["total_loss"] = loss
+    return loss, metrics

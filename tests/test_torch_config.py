@@ -39,8 +39,13 @@ def test_presets_and_errors():
     assert list(tcfg.PRESETS) == list(jcfg.PRESETS)
     with pytest.raises(KeyError, match="unknown model preset"):
         tcfg.get_config("gpt5")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tcfg.tiny_config(moe_experts=4)
+    # MoE configs build; num_params and flops_per_token stay the
+    # reference's, which count one dense FFN a layer and no experts
+    moe_t = tcfg.get_config("llama3-1b", moe_experts=8)
+    moe_j = jcfg.get_config("llama3-1b", moe_experts=8)
+    assert moe_t.num_params == moe_j.num_params == \
+        tcfg.get_config("llama3-1b").num_params
+    assert moe_t.flops_per_token(2048) == moe_j.flops_per_token(2048)
     assert tcfg.get_config("llama3-1b", param_dtype=torch.bfloat16) \
         .param_dtype == torch.bfloat16
 

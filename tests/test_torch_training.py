@@ -247,15 +247,27 @@ def test_remat_gives_the_same_step():
 
 
 def test_remat_policy_dots_and_mesh_raise():
-    ct = tcfg.tiny_config(remat=True, remat_policy="dots")
-    tx = ttrain.make_optimizer()
-    state = ttrain.init_train_state(torch.Generator().manual_seed(0), ct, tx,
-                                    device="cpu")
+    """remat_policy="dots" trains: a step from the same state gives the
+    "nothing" step's loss, grad norm and params. A mesh still raises."""
+    ct = tcfg.tiny_config(remat=True, attention_impl="pallas")
     inputs, targets = _batch(ct)
-    with pytest.raises(NotImplementedError, match="dots"):
-        ttrain.make_train_step(ct, tx)(
-            state, {"inputs": torch.from_numpy(inputs),
-                    "targets": torch.from_numpy(targets)})
+    batch = {"inputs": torch.from_numpy(inputs),
+             "targets": torch.from_numpy(targets)}
+    out = []
+    for policy in ("nothing", "dots"):
+        cfg = dataclasses.replace(ct, remat_policy=policy)
+        tx = ttrain.make_optimizer(1e-2)
+        state = ttrain.init_train_state(torch.Generator().manual_seed(0),
+                                        cfg, tx, device="cpu")
+        state, m = ttrain.make_train_step(cfg, tx)(state, batch)
+        out.append((m, state["params"]))
+    (m0, p0), (m1, p1) = out
+    torch.testing.assert_close(m1["loss"], m0["loss"], rtol=0, atol=1e-6)
+    torch.testing.assert_close(m1["grad_norm"], m0["grad_norm"], rtol=1e-6,
+                               atol=1e-6)
+    for a, b in zip(ttrain.tree_leaves(p0), ttrain.tree_leaves(p1)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    tx = ttrain.make_optimizer()
     with pytest.raises(NotImplementedError, match="mesh"):
         ttrain.make_train_step(ct, tx, mesh=object())
     with pytest.raises(NotImplementedError, match="mesh"):
