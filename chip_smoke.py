@@ -19,6 +19,12 @@ phase:
             B1 (flash_fwd), then B2 and B3 (flash_bwd_dq, flash_bwd_dkv);
             for bf16 all three are sm_90a designs (TMA tile rings gated by
             mbarriers, wgmma)
+  ring      ring attention (ray_tpu_torch.parallel.ring) for P = 4
+            virtual ranks in one process at llama3-1b's attention width,
+            bf16: [4, 2048, 32, 64] causal and non-causal, [1, 8192, 32,
+            64] causal; the ring's block steps (B1 forward, B2/B3 backward
+            per visited block, LSE merge) against B1 and B2/B3 over the
+            whole sequence (ring_check), launches counted, both timed
   entry     ray_tpu_torch.entry.entry(): the GPT-2-small forward at
             [4, 512], finite logits of the right shape
   forward   forward(params, tokens[4, 2048]) in bf16 through the flash
@@ -43,6 +49,11 @@ phase:
   moe_train    the MoE model at 4 layers, batch 4 x 2048, bf16, remat: the
             train check (a) and five AdamW steps with launches counted; ms
             per step and MFU of the active work
+  train_mesh   phase train's cell on make_mesh(fsdp=1), an NCCL world of
+            one: params and moments as DTensors, each layer's weights
+            gathered at use; one step's loss and gradient against the
+            unmeshed step's (equal within 1e-6), then five AdamW steps with
+            launches counted, ms per step and peak memory
   train_dots   phase train's cell with remat_policy="dots": one step's loss
             and gradient against the "nothing" step's; two timed optimizer
             steps each way and a third under the profiler: launches, ms per
@@ -149,6 +160,18 @@ _MOE_FWD_FP32_REL_TOL = 0.1
 # must equal "nothing"'s: loss (absolute) and flattened gradient (relative)
 # within 1e-6, as tests/test_torch_remat_dots.py holds them on the CPU.
 _DOTS_TOL = 1e-6
+# ring: P virtual ranks; causal runs P(P+1)/2 blocks (the diagonal and the
+# blocks below it), non-causal P^2. Cases: name, B, T, H, D, causal.
+_RING_P = 4
+_RING_CASES = (("main", 4, 2048, 32, 64, True),
+               ("long", 1, 8192, 32, 64, True),
+               ("noncausal", 4, 2048, 32, 64, False))
+# Each side within the kernel checks' 1e-2 of the plain version, so the ring
+# and the whole-sequence kernels within 2e-2 of each other, as a whole.
+_RING_REL_NORM_TOL = 2e-2
+# train_mesh: on a mesh of one every collective is skipped and the DTensor
+# wrapper computes the same ops on the same tensors as the unmeshed step
+_MESH_TOL = 1e-6
 
 
 def _emit(obj):
@@ -351,6 +374,231 @@ def phase_kernels(fa, seed: int):
         raise AssertionError(f"flash_fwd disagrees with its plain version: "
                              f"{bad}")
     return rows
+
+
+def _ring_blocks(causal: bool) -> int:
+    return _RING_P * (_RING_P + 1) // 2 if causal else _RING_P * _RING_P
+
+
+def _chunks(x, n: int):
+    return [c.contiguous() for c in x.chunk(n, dim=1)]
+
+
+def _finite(x) -> bool:
+    import torch
+
+    return bool(torch.isfinite(x.float()).all())
+
+
+def check_ring_fwd(o, lse, o_w, lse_w, q, k, v, *, scale: float,
+                   causal: bool) -> dict:
+    """The ring's (O, LSE) against B1's over the whole sequence (O_w,
+    LSE_w), [B*H, T, D] and [B*H, 1, T].
+
+    With u = 2^-8 and O the exact output: B1 over the whole sequence is
+    within u|O| (its output's rounding) + u (P|V|) (P rounded to bf16) of
+    O, as check_fwd bounds it. The ring rounds each block's P and each
+    block's output O_b to bf16 before the fp32 merge; the merge weights
+    e^(lse_b - lse) are a convex combination and |O_b| <= P_b|V|, so the
+    blocks' roundings add up to at most u (P|V|) each, and the merged O is
+    within u|O| + 2u (P|V|). Between the two:
+        |O_ring - O_w| <= 2u|O| + 3u (P|V|),
+    checked as 1.05 (2u|O_w| + 3u (P|V|)) + 1e-6 per element (P|V|: the
+    plain version on |V|, fp32), ||O_ring - O_w|| / ||O_w|| <= 2e-2, and
+    LSE (fp32 on both sides) within 2e-4 + 2e-4 |lse|."""
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    u = 2.0 ** -8
+    bh, t, _ = q.shape
+    step = max(1, (1 << 26) // (t * t))
+    excess = d_max = d2 = r2 = 0.0
+    for i in range(0, bh, step):
+        sl = slice(i, i + step)
+        pv_abs, _ = fa.flash_attention_fwd_reference(
+            q[sl].float(), k[sl].float(), v[sl].float().abs(), scale=scale,
+            causal=causal)
+        ref, d = o_w[sl].float(), o[sl].float() - o_w[sl].float()
+        tol = 1.05 * (2 * u * ref.abs() + 3 * u * pv_abs) + 1e-6
+        excess = max(excess, (d.abs() / tol).max().item())
+        d_max = max(d_max, d.abs().max().item())
+        d2 += d.double().pow(2).sum().item()
+        r2 += ref.double().pow(2).sum().item()
+    rel = (d2 / r2) ** 0.5
+    d_lse = (lse - lse_w).abs()
+    lse_ok = bool((d_lse <= 2e-4 + 2e-4 * lse_w.abs()).all())
+    finite = bool(_finite(o) and _finite(lse))
+    return {"o_max_abs_err": d_max, "o_err_over_tol": excess,
+            "o_tol": f"1.05*(2u|O_w| + 3u*(P|V|)) + 1e-6, u={u}",
+            "o_rel_norm_err": rel, "o_rel_norm_tol": _RING_REL_NORM_TOL,
+            "lse_max_abs_err": d_lse.max().item(),
+            "lse_tol": "2e-4 + 2e-4*|lse|",
+            "ok": (finite and excess <= 1.0 and lse_ok
+                   and rel <= _RING_REL_NORM_TOL)}
+
+
+def check_ring_bwd(grads, grads_w, q, k, v, o_w, lse, lse_w, do, *,
+                   scale: float, causal: bool) -> dict:
+    """The ring's (dQ, dK, dV) against B2/B3 over the whole sequence
+    (``grads_w``, from B1's whole-sequence O_w and LSE_w); ``lse`` is the
+    ring's merged LSE.
+
+    check_bwd bounds one kernel's dQ against the exact one by u|dQ| +
+    scale (u|dS| + w M)|K| (dS and P rounded to bf16 as operands, fp32 sums
+    in another order; u = 2^-8, w = 2^-14, M and A as in check_bwd). The
+    ring adds, over its blocks, one more rounding of each block's dQ, dK or
+    dV partial to bf16 before the fp32 sums: at most u scale |dS||K| for
+    dQ (|dQ_b| <= scale |dS_b||K_b|), u scale |dS|^T|Q| for dK, u P^T|dO|
+    for dV. The two sides also start from different O and LSE: B2's Delta =
+    rowsum(dO O) moves by at most 5u R (R = rowsum(P o |dO||V|^T), from
+    the forward's |O_ring - O_w| <= 5u (P|V|)), which moves dS by P 5u R;
+    an LSE apart by e moves P, and so dS and dV, by a factor e. So
+        |dQ - dQ_w| <= 2u|dQ_w| + scale E |K|,
+        |dK - dK_w| <= 2u|dK_w| + scale E^T |Q|,
+        |dV - dV_w| <= 2u|dV_w| + ((3u + e) P + 2w P A)^T |dO|,
+        E = (3u + e)|dS| + 2w M + 5u P R,
+    each times 1.05, + 1e-6, with e the per-row |lse - lse_w|; and each
+    output within 2e-2 of the whole-sequence one as a whole."""
+    u, w = 2.0 ** -8, 2.0 ** -14
+    bh, t, _ = q.shape
+    step = max(1, (1 << 26) // (t * t))
+    names = ("dq", "dk", "dv")
+    stats = {n: {"max": 0.0, "excess": 0.0, "d2": 0.0, "r2": 0.0}
+             for n in names}
+    finite = all(_finite(g) for g in grads)
+    import torch
+
+    for i in range(0, bh, step):
+        sl = slice(i, i + step)
+        qs, ks, vs, os_, dos = (x[sl].float() for x in (q, k, v, o_w, do))
+        s = torch.matmul(qs, ks.transpose(1, 2)) * scale
+        if causal:
+            keep = (torch.arange(t, device=q.device)[:, None]
+                    >= torch.arange(t, device=q.device)[None, :])
+            s = torch.where(keep, s, torch.full_like(s, -1e30))
+        p = torch.exp(s - lse_w[sl].float()[:, 0, :, None])
+        del s
+        delta = (dos * os_).sum(dim=-1)[:, :, None]
+        dp = torch.matmul(dos, vs.transpose(1, 2))
+        ds = p * (dp - delta)
+        dov = torch.matmul(dos.abs(), vs.abs().transpose(1, 2))
+        a = scale * torch.matmul(qs.abs(), ks.abs().transpose(1, 2))
+        m = p * (dov + delta.abs() + a * (dp - delta).abs())
+        r = (p * dov).sum(dim=-1, keepdim=True)
+        e_lse = (lse[sl] - lse_w[sl]).abs()[:, 0, :, None]
+        big_e = (3 * u + e_lse) * ds.abs() + 2 * w * m + 5 * u * p * r
+        del dp, ds, dov, m
+        comp = {"dq": scale * torch.matmul(big_e, ks.abs()),
+                "dk": scale * torch.matmul(big_e.transpose(1, 2), qs.abs()),
+                "dv": torch.matmul(((3 * u + e_lse) * p + 2 * w * p * a)
+                                   .transpose(1, 2), dos.abs())}
+        del big_e, p, a
+        for name, got, ref in zip(names, grads, grads_w):
+            got, ref = got[sl].float(), ref[sl].float()
+            d = got - ref
+            tol = 1.05 * (2 * u * ref.abs() + comp[name]) + 1e-6
+            st = stats[name]
+            st["max"] = max(st["max"], d.abs().max().item())
+            st["excess"] = max(st["excess"], (d.abs() / tol).max().item())
+            st["d2"] += d.double().pow(2).sum().item()
+            st["r2"] += ref.double().pow(2).sum().item()
+    out, ok = {"finite": finite}, finite
+    for name, st in stats.items():
+        rel = (st["d2"] ** 0.5) / max(st["r2"] ** 0.5, 1e-30)
+        out.update({f"{name}_max_abs_err": st["max"],
+                    f"{name}_err_over_tol": st["excess"],
+                    f"{name}_rel_norm_err": rel})
+        ok = ok and st["excess"] <= 1.0 and rel <= _RING_REL_NORM_TOL
+    out.update({"tol": "1.05*(2u|ref| + companion) + 1e-6, E = (3u + e)|dS|"
+                       f" + 2wM + 5u P R, u={u}, w={w}",
+                "rel_norm_tol": _RING_REL_NORM_TOL, "ok": ok})
+    return out
+
+
+def ring_check(fa, R, case, seed: int, timed: bool = True) -> dict:
+    """One ring case: the ring's forward and backward for _RING_P virtual
+    ranks (launches counted around each), B1 and B2/B3 over the whole
+    sequence on the same inputs, check_ring_fwd and check_ring_bwd, and
+    (``timed``) both sides' times beside the whole-sequence bounds."""
+    import torch
+
+    name, b, t, h, d, causal = case
+    bh, n = b * h, _RING_P
+    g = torch.Generator(device="cuda").manual_seed(seed + 31)
+    q, k, v, do = (torch.randn(bh, t, d, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    qs, ks, vs, dos = (_chunks(x, n) for x in (q, k, v, do))
+
+    def ring_fwd():
+        return R.ring_forward_virtual(qs, ks, vs, scale=scale, causal=causal)
+
+    _zero_counts(fa)
+    os_, lses = ring_fwd()
+    torch.cuda.synchronize()
+    fwd_launches = _counts(fa)
+
+    def ring_bwd():
+        return R.ring_backward_virtual(qs, ks, vs, os_, lses, dos,
+                                       scale=scale, causal=causal)
+
+    _zero_counts(fa)
+    grads = ring_bwd()
+    torch.cuda.synchronize()
+    bwd_launches = _counts(fa)
+    o, lse = torch.cat(os_, 1), torch.cat(lses, 2)
+    grads = [torch.cat(x, 1) for x in grads]
+    # the whole sequence through the same kernels (not counted)
+    o_w, lse_w = fa.flash_attention_fwd(q, k, v, scale=scale, causal=causal)
+    grads_w = fa.flash_attention_bwd(q, k, v, o_w, lse_w, do, scale=scale,
+                                     causal=causal)
+    torch.cuda.synchronize()
+    fwd = check_ring_fwd(o, lse, o_w, lse_w, q, k, v, scale=scale,
+                         causal=causal)
+    bwd = check_ring_bwd(grads, grads_w, q, k, v, o_w, lse, lse_w, do,
+                         scale=scale, causal=causal)
+    want = _ring_blocks(causal)
+    launches_ok = (fwd_launches == {"flash_fwd": want, "flash_bwd_dq": 0,
+                                    "flash_bwd_dkv": 0}
+                   and bwd_launches == {"flash_fwd": 0, "flash_bwd_dq": want,
+                                        "flash_bwd_dkv": want})
+    row = {"case": name, "shape_bthd": [b, t, h, d], "dtype": "bfloat16",
+           "causal": causal, "virtual_ranks": n, "block_t": t // n,
+           "fwd": fwd, "bwd": bwd, "fwd_launches": fwd_launches,
+           "bwd_launches": bwd_launches, "launches_want": want,
+           "ok": fwd["ok"] and bwd["ok"] and launches_ok}
+    if timed:
+        iters = 10
+        fb_ms, fb_by, _, _ = _flash_bound(bh, t, t, d, "bfloat16", causal)
+        bb = _bwd_bounds(bh, t, t, d, "bfloat16", causal)
+        row.update({
+            "ring_fwd_ms": _time_ms(ring_fwd, iters),
+            "whole_fwd_ms": _time_ms(lambda: fa.flash_attention_fwd(
+                q, k, v, scale=scale, causal=causal), iters),
+            "ring_bwd_ms": _time_ms(ring_bwd, iters),
+            "whole_bwd_ms": _time_ms(lambda: fa.flash_attention_bwd(
+                q, k, v, o_w, lse_w, do, scale=scale, causal=causal), iters),
+            "fwd_bound_ms": fb_ms, "fwd_bound_by": fb_by,
+            "bwd_bound_ms": sum(x[0] for x in bb.values()),
+            "bwd_bound_by": "+".join(x[1] for x in bb.values())})
+    return row
+
+
+def phase_ring(fa, R, seed: int):
+    """ring_check on each of _RING_CASES; -> the main case's launches."""
+    import torch
+
+    rows = []
+    for case in _RING_CASES:
+        rows.append(ring_check(fa, R, case, seed))
+        _emit({"phase": "ring", **rows[-1]})
+        torch.cuda.empty_cache()
+    bad = [r["case"] for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"ring attention disagrees with the whole-"
+                             f"sequence kernels: {bad}")
+    main = rows[0]
+    return {"ring_forward": main["fwd_launches"]["flash_fwd"],
+            "ring_backward": main["bwd_launches"]["flash_bwd_dq"],
+            "ring_backward_dkv": main["bwd_launches"]["flash_bwd_dkv"]}
 
 
 def _rel(x, ref) -> float:
@@ -841,19 +1089,22 @@ def phase_entry():
         raise AssertionError("entry()'s forward is wrong")
 
 
-def _grads(T, TR, params, batch, cfg):
-    """(loss, grads) of one step's loss_fn, leaves in tree order."""
+def _grads(T, TR, params, batch, cfg, mesh=None):
+    """(loss, grads) of one step's loss_fn, leaves in tree order; on a
+    ``mesh`` (DTensor params) the grads' local shards."""
     import torch
 
     leaves = TR.tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     try:
-        loss, _ = T.loss_fn(params, batch, cfg)
+        loss, _ = T.loss_fn(params, batch, cfg, mesh)
         grads = torch.autograd.grad(loss, leaves)
     finally:
         for p in leaves:
             p.requires_grad_(False)
+    if mesh is not None:
+        grads = [g.to_local() for g in grads]
     return loss.detach(), grads
 
 
@@ -981,17 +1232,24 @@ def _step_profile(step):
             "top_kernels": top}
 
 
-def _train_steps(fa, TR, cfg, params, batch, steps: int, profile: bool):
+def _train_steps(fa, TR, cfg, params, batch, steps: int, profile: bool,
+                 mesh=None):
     """``steps`` AdamW steps (lr 3e-4, bf16 first moment) through the
     kernels on one fixed batch, in place on ``params``; each step's
     metrics, launches and host wall (synchronized), the peak memory, and
-    with ``profile`` the last step under torch.profiler (_step_profile)."""
+    with ``profile`` the last step under torch.profiler (_step_profile).
+    With a ``mesh`` the state is sharded on it (interop.shard_state) and
+    the step is the meshed one."""
     import torch
 
     tx = TR.make_optimizer(3e-4, mu_dtype=torch.bfloat16)
     state = {"step": torch.zeros((), dtype=torch.int32, device="cuda"),
              "params": params, "opt_state": tx.init(params)}
-    step_fn = TR.make_train_step(cfg, tx)
+    if mesh is not None:
+        from ray_tpu_torch.interop import shard_state
+
+        state = shard_state(mesh, state, cfg, tx)
+    step_fn = TR.make_train_step(cfg, tx, mesh)
     metrics, launches, walls, prof = [], [], [], None
     torch.cuda.reset_peak_memory_stats()
     for i in range(steps):
@@ -1126,6 +1384,61 @@ def phase_moe_train(fa, T, TR, cfg, params, seed: int):
     return run["launches_per_step"][0]
 
 
+def phase_train_mesh(fa, T, TR, C, params, seed: int):
+    """Phase train's cell on make_mesh(fsdp=1), an NCCL world of one:
+      (a) one step's loss and gradient with the params as DTensors
+          (interop.shard_params) against the unmeshed step's on the same
+          params and batch, within _MESH_TOL (loss absolute, flattened
+          gradient relative); that step launches B1 32, B2 16, B3 16 times;
+      (b) _TRAIN_STEPS meshed AdamW steps from a copy of the params:
+          launches per step, ms per step (steps 2-5), peak memory, beside
+          phase train's, which shows the DTensor wrapper's host cost.
+    ``params`` are left as they were; the process group is destroyed."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.interop import shard_params
+    from ray_tpu_torch.parallel import make_mesh
+
+    cfg = train_config(C)
+    batch = train_batch(cfg, seed + 3)
+    mesh = make_mesh(fsdp=1)
+    try:
+        loss_u, grads_u = _grads(T, TR, params, batch, cfg)
+        dparams = shard_params(mesh, params, cfg)
+        _zero_counts(fa)
+        loss_m, grads_m = _grads(T, TR, dparams, batch, cfg, mesh)
+        grad_launches = _counts(fa)
+        direct = {"loss": abs(loss_m.item() - loss_u.item()),
+                  "grad": _tree_rel(grads_m, grads_u)}
+        del grads_u, grads_m, dparams
+        torch.cuda.empty_cache()
+        copy = TR.tree_map(lambda w: w.clone(), params)
+        run = _train_steps(fa, TR, cfg, copy, batch, _TRAIN_STEPS, False,
+                           mesh)
+        del copy
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    walls = run.pop("walls_ms")
+    step_ms = sum(walls[1:]) / len(walls[1:])
+    del run["metrics"], run["profile_last_step"]
+    launches_ok = all(c == _TRAIN_LAUNCHES
+                      for c in [grad_launches, *run["launches_per_step"]])
+    parity_ok = all(x <= _MESH_TOL for x in direct.values())
+    _emit({"phase": "train_mesh", "config": "llama3-1b", "batch": [4, 2048],
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+           "backend": "nccl", "meshed_vs_unmeshed": direct,
+           "tol": _MESH_TOL, "loss_unmeshed": loss_u.item(),
+           "grad_launches": grad_launches, **run,
+           "launches_want": _TRAIN_LAUNCHES, "first_step_ms": walls[0],
+           "ms_per_step": step_ms,
+           "tokens_per_s": 4 * 2048 / step_ms * 1e3})
+    if not (parity_ok and launches_ok and run["finite"] and run["falling"]):
+        raise AssertionError("train_mesh phase failed")
+    return run["launches_per_step"][0]
+
+
 def phase_train_dots(fa, T, TR, C, params, seed: int):
     """Phase train's cell with remat_policy "dots" (keep the outputs of
     aten.mm, recompute the rest) from the same params and batch:
@@ -1197,6 +1510,7 @@ def run(seed: int) -> int:
     from ray_tpu_torch.models import moe as M
     from ray_tpu_torch.models import training as TR
     from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.parallel import ring as R
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
 
     # fp32 matmuls and convolutions in full fp32: no TF32 anywhere
@@ -1239,6 +1553,8 @@ def run(seed: int) -> int:
 
     rows = attempt("kernels", phase_kernels, fa, seed)
     bwd_rows = attempt("kernels_bwd", phase_kernels_bwd, fa, seed)
+    ring_launches = attempt("ring", phase_ring, fa, R, seed)
+    torch.cuda.empty_cache()
     attempt("entry", phase_entry)
 
     cfg = C.get_config("llama3-1b", param_dtype=torch.bfloat16)
@@ -1283,6 +1599,9 @@ def run(seed: int) -> int:
     del moe_params
     torch.cuda.empty_cache()
 
+    mesh_launches = attempt("train_mesh", phase_train_mesh, fa, T, TR, C,
+                            params, seed)
+    torch.cuda.empty_cache()
     dots_launches = attempt("train_dots", phase_train_dots, fa, T, TR, C,
                             params, seed)
     torch.cuda.empty_cache()
@@ -1308,7 +1627,9 @@ def run(seed: int) -> int:
             "forward": launches, "train_step": train_launches["flash_fwd"],
             "moe_forward": moe_launches,
             "moe_train_step": moe_train_launches["flash_fwd"],
-            "train_dots_step": dots_launches["flash_fwd"]}}]
+            "train_dots_step": dots_launches["flash_fwd"],
+            "ring_forward": ring_launches["ring_forward"],
+            "train_mesh_step": mesh_launches["flash_fwd"]}}]
     for name, line_no, source, err in (
             ("flash_bwd_dq", 87, "flash_bwd.cu", "dq_max_abs_err"),
             ("flash_bwd_dkv", 111, "flash_bwd_dkv.cu", None)):
@@ -1329,7 +1650,11 @@ def run(seed: int) -> int:
             "launches_by_path": {
                 "train_step": train_launches[name],
                 "moe_train_step": moe_train_launches[name],
-                "train_dots_step": dots_launches[name]}})
+                "train_dots_step": dots_launches[name],
+                "ring_backward": ring_launches[
+                    "ring_backward" if name == "flash_bwd_dq"
+                    else "ring_backward_dkv"],
+                "train_mesh_step": mesh_launches[name]}})
     _emit({"kernels": line})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

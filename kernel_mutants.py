@@ -26,15 +26,19 @@ they apply, for each mutant:
               moe_forward_parity``: the 16-layer llama3-1b model with 8
               experts at [4, 2048], within _MOE_FWD_BF16_RATIO;
   moe_train   train check (a) on chip_smoke.py's 4-layer MoE cell
-              (``moe_train_config``), within _TRAIN_BF16_RATIO.
+              (``moe_train_config``), within _TRAIN_BF16_RATIO;
+  ring        chip_smoke.py's ring check, ``chip_smoke.ring_check``: ring
+              attention for 4 virtual ranks against B1 and B2/B3 over the
+              whole sequence (``check_ring_fwd``, ``check_ring_bwd``) and
+              its launch counts, on each of chip_smoke's _RING_CASES.
 
 The baseline's train, moe_forward and moe_train checks run over every
 --weight-seeds x --batch-seeds pair: the spread of the plain bf16 step or
 forward that the ratios are set from; its other checks, and every mutant's,
 run at chip_smoke's own seeds (weight seed --seed, batch seed --seed + 3;
 for the MoE checks --seed + 100 and + 101, as chip_smoke.py draws them). The mutants, each a few edited lines of one
-``csrc`` source in a copy of ``ray_tpu_torch`` in a temporary directory,
-built there with ``nvcc``:
+source (a ``csrc`` kernel, or ``parallel/ring.py``) in a copy of
+``ray_tpu_torch`` in a temporary directory, built there with ``nvcc``:
 
   b1_skip_k_tile   B1 masks out K/V tile 1 (keys 128-255) for every query
                    block (check_fwd, forward, moe_forward)
@@ -43,6 +47,11 @@ built there with ``nvcc``:
                    (check_bwd, train, moe_train)
   b3_skip_q_tile   B3 leaves out the Q/dO tile at query 1024 for every key
                    block (check_bwd, train, moe_train)
+  ring_drop_block  the ring skips one block off the diagonal (below it
+                   when causal): rank 3's queries never meet rank 0's keys
+                   (ring)
+  ring_no_rescale  the LSE merge adds the running output without its
+                   weight e^(lse_a - lse) (ring)
 
 One JSON line per check run. Exits non-zero unless every check passes the
 baseline and refuses every mutant it is run on. Needs an NVIDIA GPU and
@@ -64,7 +73,7 @@ _ROOT = os.path.dirname(os.path.abspath(__file__))
 # name -> (the source it edits, [(a line of it, the text put in its
 # place)], the checks it runs)
 MUTANTS = {
-    "b1_skip_k_tile": ("flash_fwd.cu", [
+    "b1_skip_k_tile": ("csrc/flash_fwd.cu", [
         ("      if (key >= t_k || (causal && key > r0 + 8 * ((i >> 1) & 1))) "
          "sc[i] = kNegInf;\n",
          "      if (k0 == 2 * N || key >= t_k || "
@@ -73,18 +82,30 @@ MUTANTS = {
          "      return k0 == BN || k0 + BN > t_k || "
          "(causal && k0 + BN - 1 > row_lo);\n")],
         ["check_fwd", "forward", "moe_forward"]),
-    "b2_skip_k_tile": ("flash_bwd.cu", [
+    "b2_skip_k_tile": ("csrc/flash_bwd.cu", [
         ("        float p = fast_exp2(fmaf(sc[i], sl2, -lse2[h]));\n",
          "        float p = k0 == BN ? 0.f : "
          "fast_exp2(fmaf(sc[i], sl2, -lse2[h]));\n")],
         ["check_bwd", "train", "moe_train"]),
-    "b3_skip_q_tile": ("flash_bwd_dkv.cu", [
+    "b3_skip_q_tile": ("csrc/flash_bwd_dkv.cu", [
         ("      const bool skip = causal && kw > q0 + BM - 1;\n",
          "      const bool skip = (causal && kw > q0 + BM - 1) || q0 == 1024;\n")],
         ["check_bwd", "train", "moe_train"]),
+    "ring_drop_block": ("parallel/ring.py", [
+        ("    if not causal:\n        return False\n",
+         "    if not causal:\n"
+         "        return None if (src, rank) == (0, 3) else False\n"),
+        ("    if src < rank:\n        return False\n",
+         "    if src < rank:\n"
+         "        return None if (src, rank) == (0, 3) else False\n")],
+        ["ring"]),
+    "ring_no_rescale": ("parallel/ring.py", [
+        ("    return w_a * o_a.float() + w_b * o_b.float(), lse\n",
+         "    return o_a.float() + w_b * o_b.float(), lse\n")],
+        ["ring"]),
 }
 CHECKS = ["check_fwd", "forward", "check_bwd", "train", "moe_forward",
-          "moe_train"]
+          "moe_train", "ring"]
 
 # argv: package root, seed, weight seeds, batch seeds, checks (JSON lists).
 # The package root comes first on sys.path, so ray_tpu_torch is the copy
@@ -169,6 +190,14 @@ for check, cfg, offset in (("moe_forward", cs.moe_config(C), 100),
                               "batch_seed": bs, **par}), flush=True)
         del params
         torch.cuda.empty_cache()
+
+from ray_tpu_torch.parallel import ring as R
+assert R.__file__.startswith(sys.argv[1]), R.__file__
+if "ring" in checks:
+    for case in cs._RING_CASES:
+        row = cs.ring_check(fa, R, case, seed, timed=False)
+        print(json.dumps({"check": "ring", **row}), flush=True)
+        torch.cuda.empty_cache()
 """
 
 
@@ -194,7 +223,7 @@ def run_mutant(name: str, seed: int) -> list:
         pkg = os.path.join(tmp, "ray_tpu_torch")
         shutil.copytree(os.path.join(_ROOT, "ray_tpu_torch"), pkg,
                         ignore=shutil.ignore_patterns("__pycache__"))
-        src = os.path.join(pkg, "csrc", source)
+        src = os.path.join(pkg, source)
         text = open(src).read()
         for old, new in edits:
             if text.count(old) != 1:

@@ -6,6 +6,11 @@ reach numpy with the dtype named ``bfloat16`` (an ``ml_dtypes`` type that
 ``torch.from_numpy`` refuses). They travel as their raw 16 bits, a uint16
 view, and are reinterpreted as ``torch.bfloat16``, without importing
 ``ml_dtypes``.
+
+``shard_params`` and ``shard_state`` place such params, or a whole train
+state, on a mesh as DTensors: each rank passes the same global values and
+keeps its own shards, so both sides of a parity test start from the same
+weights.
 """
 
 from __future__ import annotations
@@ -58,3 +63,40 @@ def params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig,
         return out
 
     return convert(tree, want, "")
+
+
+def _place(tree, placements, mesh):
+    from ray_tpu_torch.parallel.sharding import distribute
+
+    if isinstance(tree, dict):
+        return {k: _place(v, placements[k], mesh) for k, v in tree.items()}
+    if tree.dim() == 0:  # the step and count scalars stay plain (replicated)
+        return tree
+    return distribute(tree, mesh, placements)
+
+
+def shard_params(mesh, params, cfg: TransformerConfig, rules=None):
+    """Params -> DTensors placed by ``param_logical_axes`` on ``mesh``.
+    ``params`` is the reference's pytree as numpy (through
+    ``params_from_numpy``, onto this rank's device) or the port's own
+    params; every rank passes the same values."""
+    from ray_tpu_torch.models.transformer import param_logical_axes
+    from ray_tpu_torch.parallel.mesh import mesh_device
+    from ray_tpu_torch.parallel.sharding import tree_shardings
+
+    leaf = params
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    if not isinstance(leaf, torch.Tensor):
+        params = params_from_numpy(params, cfg, mesh_device(mesh))
+    return _place(params, tree_shardings(mesh, param_logical_axes(cfg),
+                                         rules), mesh)
+
+
+def shard_state(mesh, state, cfg: TransformerConfig, tx, rules=None):
+    """A train state ({"step", "params", "opt_state"}, the same on every
+    rank) -> the same state with params and moments as DTensors placed by
+    ``training.state_shardings``."""
+    from ray_tpu_torch.models.training import state_shardings
+
+    return _place(state, state_shardings(cfg, tx, mesh, rules), mesh)

@@ -1,10 +1,9 @@
 """Built-in model family of the port: the Llama-style decoder.
 
-Mirrors ``ray_tpu/models/__init__.py`` for what runs on one device:
-configs, the forward and loss (dense or Mixture-of-Experts FFN), the train
+Mirrors ``ray_tpu/models/__init__.py``: configs, the forward and loss (dense or Mixture-of-Experts FFN), the train
 step, KV-cache generation, the continuous-batching engine and the MLM
-masking. The sharding helpers (``param_logical_axes``, ``state_shardings``,
-``batch_sharding``) wait for the parallel layer (ROADMAP.md).
+masking, and with a mesh the sharded forward, loss and train step
+(``param_logical_axes``, ``state_shardings``, ``batch_sharding``).
 """
 
 from ray_tpu_torch.models.config import (
@@ -28,12 +27,15 @@ from ray_tpu_torch.models.transformer import (
     forward,
     init_params,
     loss_fn,
+    param_logical_axes,
 )
 from ray_tpu_torch.models.training import (
+    batch_sharding,
     init_train_state,
     make_eval_step,
     make_optimizer,
     make_train_step,
+    state_shardings,
 )
 
 __all__ = [
@@ -41,6 +43,7 @@ __all__ = [
     "gpt2_small_config", "llama3_1b_config", "llama3_8b_config",
     "llama3_70b_config", "bert_base_config", "mask_tokens",
     "forward", "init_params", "loss_fn", "Transformer",
+    "param_logical_axes", "state_shardings", "batch_sharding",
     "prefill", "decode_step", "init_cache", "InferenceEngine",
     "make_optimizer", "make_train_step", "make_eval_step",
     "init_train_state",

@@ -229,8 +229,8 @@ class InferenceEngine:
                  device=None):
         if mesh is not None:
             raise NotImplementedError(
-                "a tensor-parallel engine (mesh) is not ported yet: "
-                "ROADMAP.md, the parallel layer")
+                "a meshed (tensor-parallel) engine is not ported yet: "
+                "ROADMAP A1b")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.slots = int(slots)

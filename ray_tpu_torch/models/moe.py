@@ -25,7 +25,20 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from ray_tpu_torch.parallel.mesh import BATCH_AXES, present_axes, psum
+
 Params = Dict[str, Any]
+
+
+def moe_param_logical_axes() -> Dict[str, tuple]:
+    """Logical axes for one layer-stack of MoE parameters (leading layers
+    axis; experts axis sharded over the ``expert`` mesh axis)."""
+    return {
+        "router": ("layers", "embed", "experts"),
+        "w_gate": ("layers", "experts", "embed", "mlp"),
+        "w_up": ("layers", "experts", "embed", "mlp"),
+        "w_down": ("layers", "experts", "mlp", "embed"),
+    }
 
 
 def _silu(x):
@@ -92,16 +105,27 @@ def assign_slots(top_i, E: int, C: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return place, place < C
 
 
-def load_balance(probs, top_i, E: int):
+def load_balance(probs, top_i, E: int, mesh=None):
     """Switch aux loss: E * sum_e (share of tokens whose top-1 is e) * (mean
-    router probability of e); 1.0 at perfect balance."""
+    router probability of e); 1.0 at perfect balance. On a mesh whose batch
+    is split, both means are global: the per-rank sums are all-reduced over
+    the batch axes before the product (the probabilities' differentiably),
+    so every rank holds the same aux."""
     top1 = torch.nn.functional.one_hot(top_i[..., 0], E).float()
-    frac = top1.reshape(-1, E).mean(dim=0)
-    mean_p = probs.reshape(-1, E).mean(dim=0)
+    if mesh is None or not present_axes(mesh, BATCH_AXES):
+        frac = top1.reshape(-1, E).mean(dim=0)
+        mean_p = probs.reshape(-1, E).mean(dim=0)
+        return E * (frac * mean_p).sum()
+    n = psum(torch.tensor(float(top1.shape[0] * top1.shape[1]),
+                          device=probs.device), mesh, BATCH_AXES)
+    frac = psum(top1.reshape(-1, E).sum(dim=0), mesh, BATCH_AXES) / n
+    mean_p = psum(probs.reshape(-1, E).sum(dim=0), mesh, BATCH_AXES,
+                  differentiable=True) / n
     return E * (frac * mean_p).sum()
 
 
-def moe_ffn(h, lp: Params, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(h, lp: Params, cfg, mesh=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One MoE FFN layer: h [B, T, d] -> (out [B, T, d] in h's dtype, aux
     fp32 scalar). lp: one layer's {router [d, E], w_gate/w_up [E, d, ff],
     w_down [E, ff, d]}.
@@ -109,7 +133,9 @@ def moe_ffn(h, lp: Params, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     Dispatch by index: the kept slot s of row b, routed to expert e at
     place c, fills row b*C + c of expert e's batch; empty places read a
     zero row. Expert e's output row comes back to slot s times the slot's
-    weight (fp32), the k slots of a token are summed, then cast."""
+    weight (fp32), the k slots of a token are summed, then cast. With a
+    ``mesh``, h holds this rank's whole batch rows (capacity stays per row)
+    and the aux is global (``load_balance``)."""
     B, T, d = h.shape
     E, k = cfg.moe_experts, cfg.moe_top_k
     C = capacity(T, cfg)
@@ -136,7 +162,7 @@ def moe_ffn(h, lp: Params, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     out = torch.cat([out, out.new_zeros(1, d)]).float()
     y = out[dest] * top_p.reshape(B, S, 1)
     y = y.reshape(B, T, k, d).sum(dim=2).to(h.dtype)
-    return y, load_balance(probs, top_i, E)
+    return y, load_balance(probs, top_i, E, mesh)
 
 
 def moe_ffn_dense(h, lp: Params, cfg):

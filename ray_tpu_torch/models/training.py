@@ -11,8 +11,14 @@ dtype. ``torch.optim.AdamW`` decays the params before its step, the same
 mathematics in another rounding order, which bf16 params would show.
 
 The train step updates params and moments in place under ``no_grad``,
-standing in for the reference's donated state. Sharded execution (``mesh``,
-``state_shardings``, ``batch_sharding``) waits for the parallel layer.
+standing in for the reference's donated state.
+
+With a ``mesh``, params and both moments are DTensors placed by
+``param_logical_axes`` (``state_shardings``: ZeRO-3 over ``fsdp``, moments
+matched to params by shape), the batch is split by ``batch_sharding``, the
+loss and its gradient are the global ones (``transformer.loss_fn``), the
+gradient norm sums each leaf's squares over the axes that shard it, and the
+optimizer updates each rank's shards.
 """
 
 from __future__ import annotations
@@ -21,20 +27,18 @@ import math
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ray_tpu_torch.models.config import TransformerConfig
-from ray_tpu_torch.models.transformer import init_params, loss_fn
+from ray_tpu_torch.models.transformer import (init_params, loss_fn,
+                                              param_logical_axes,
+                                              param_shapes)
+from ray_tpu_torch.parallel.mesh import check_supported, mesh_device, psum
+from ray_tpu_torch.parallel.sharding import logical_placements
 
 TrainState = Dict[str, Any]  # {"step", "params", "opt_state"}
 OptState = Dict[str, Any]    # {"count": int32 [], "mu": tree, "nu": tree}
 Schedule = Callable[[torch.Tensor], torch.Tensor]
-
-
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded training (mesh, state_shardings, batch_sharding) is not "
-            "ported yet: ROADMAP.md, the parallel layer")
 
 
 # ---- trees -----------------------------------------------------------------
@@ -64,10 +68,26 @@ def _unflatten(like, leaves: List[torch.Tensor]):
     return build(like)
 
 
+def _sum_sq(x) -> torch.Tensor:
+    """sum(x * x) of a leaf; for a DTensor, its shard's, all-reduced over
+    the mesh axes that shard it (never over its replicas)."""
+    if not isinstance(x, DTensor):
+        return (x * x).sum()
+    local = x.to_local()
+    names = x.device_mesh.mesh_dim_names
+    axes = [names[i] for i, p in enumerate(x.placements)
+            if isinstance(p, Shard)]
+    return psum((local * local).sum(), x.device_mesh, axes)
+
+
 def global_norm(tree) -> torch.Tensor:
     """``optax.global_norm``: sqrt of the sum over leaves of sum(x * x), each
-    in its leaf's dtype, added leaf by leaf."""
-    return torch.sqrt(sum((x * x).sum() for x in tree_leaves(tree)))
+    in its leaf's dtype, added leaf by leaf; a DTensor leaf counts once."""
+    return torch.sqrt(sum(_sum_sq(x) for x in tree_leaves(tree)))
+
+
+def _local(x):
+    return x.to_local() if isinstance(x, DTensor) else x
 
 
 def _scalar(x: float, dtype: torch.dtype) -> float:
@@ -177,8 +197,12 @@ class AdamW:
         return _unflatten(params, [o[0] for o in outs]), new
 
     @torch.no_grad()
-    def step_(self, grads, state: OptState, params) -> torch.Tensor:
-        g_norm = global_norm(grads)
+    def step_(self, grads, state: OptState, params,
+              g_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``g_norm`` (default: ``global_norm(grads)``) is the raw grads'
+        norm, given when the trees are shards of larger ones."""
+        if g_norm is None:
+            g_norm = global_norm(grads)
         scalars = self._scalars(state, g_norm)
         for g, m, n, p in zip(tree_leaves(grads), tree_leaves(state["mu"]),
                               tree_leaves(state["nu"]), tree_leaves(params)):
@@ -223,13 +247,46 @@ def make_init_fn(cfg: TransformerConfig, tx: AdamW, device=None):
     return init
 
 
+def state_shardings(cfg: TransformerConfig, tx: AdamW, mesh, rules=None):
+    """Placements for the whole TrainState, same structure.
+
+    Optimizer moments mirror param shapes, so their placements come from
+    the params' by shape (ZeRO: moments shard exactly like their params).
+    Anything unmatched (the step and the count) is replicated."""
+    del tx  # the moments' structure is the params'
+    by_shape = {}
+    shapes, axes = param_shapes(cfg), param_logical_axes(cfg)
+    for shape, ax in zip(tree_leaves(shapes), tree_leaves(axes)):
+        by_shape[shape] = logical_placements(mesh, ax, rules)
+    repl = tuple(Replicate() for _ in mesh.mesh_dim_names)
+    place = tree_map(lambda shape: by_shape.get(shape, repl), shapes)
+    return {"step": repl, "params": place,
+            "opt_state": {"count": repl, "mu": place, "nu": place}}
+
+
+def batch_sharding(mesh, rules=None):
+    """Placements of a [B, T] token batch array (every key of the batch):
+    rows over the batch axes, the sequence over ``sequence``.
+
+    Under sequence parallelism use the {"inputs", "targets"} batch format
+    with T divisible by the sequence axis: a raw {"tokens": [B, T+1]} batch
+    generally isn't evenly shardable on the seq dim."""
+    return logical_placements(mesh, ("batch", "seq"), rules)
+
+
 def init_train_state(rng: torch.Generator, cfg: TransformerConfig, tx: AdamW,
                      mesh=None, rules=None, device=None) -> TrainState:
     """Params from ``rng`` (on ``device``, CUDA unless the caller asks for
-    the CPU) and zero moments."""
-    del rules
-    _refuse_mesh(mesh)
-    return make_init_fn(cfg, tx, device)(rng)
+    the CPU) and zero moments. With a ``mesh``: on the mesh's device, every
+    rank draws the same params and keeps its shards (``state_shardings``);
+    give every rank a generator with the same seed."""
+    if mesh is None:
+        return make_init_fn(cfg, tx, device)(rng)
+    from ray_tpu_torch.interop import shard_state
+
+    check_supported(mesh, cfg)
+    state = make_init_fn(cfg, tx, mesh_device(mesh))(rng)
+    return shard_state(mesh, state, cfg, tx, rules)
 
 
 def make_train_step(cfg: TransformerConfig, tx: AdamW, mesh=None,
@@ -238,9 +295,14 @@ def make_train_step(cfg: TransformerConfig, tx: AdamW, mesh=None,
     in place and returned; metrics are ``loss_fn``'s (``loss`` is the cross
     entropy; MoE adds ``moe_aux`` and ``total_loss``, the loss the gradient
     is of), ``grad_norm`` (of the raw grads, before the clip) and
-    ``step``."""
-    del rules
-    _refuse_mesh(mesh)
+    ``step``. With a ``mesh``, the state is a sharded one
+    (``init_train_state(..., mesh)`` or ``interop.shard_state``) and the
+    batch the global one: the gradient of the global loss comes back as
+    DTensors placed as their params (the gathers' backward), its norm is
+    the global one, and the optimizer runs on this rank's shards."""
+    del rules  # the state carries its placements
+    if mesh is not None:
+        check_supported(mesh, cfg)
 
     def step(state: TrainState, batch):
         params = state["params"]
@@ -250,13 +312,18 @@ def make_train_step(cfg: TransformerConfig, tx: AdamW, mesh=None,
             p.requires_grad_(True)
         try:
             with torch.enable_grad():
-                loss, metrics = loss_fn(params, batch, cfg)
+                loss, metrics = loss_fn(params, batch, cfg, mesh)
                 grads = torch.autograd.grad(loss, leaves)
         finally:
             for p, flag in zip(leaves, flags):
                 p.requires_grad_(flag)
-        grad_norm = tx.step_(_unflatten(params, list(grads)),
-                             state["opt_state"], params)
+        grads = _unflatten(params, list(grads))
+        grad_norm = global_norm(grads)
+        opt = state["opt_state"]
+        tx.step_(tree_map(_local, grads),
+                 {"count": opt["count"], "mu": tree_map(_local, opt["mu"]),
+                  "nu": tree_map(_local, opt["nu"])},
+                 tree_map(_local, params), g_norm=grad_norm)
         del grads
         state["step"] += 1
         return state, {**{k: v.detach() for k, v in metrics.items()},
@@ -266,11 +333,14 @@ def make_train_step(cfg: TransformerConfig, tx: AdamW, mesh=None,
 
 
 def make_eval_step(cfg: TransformerConfig, mesh=None):
-    _refuse_mesh(mesh)
+    """-> ``step(params, batch) -> metrics`` (``loss_fn``'s, global on a
+    ``mesh``)."""
+    if mesh is not None:
+        check_supported(mesh, cfg)
 
     @torch.no_grad()
     def step(params, batch):
-        _, metrics = loss_fn(params, batch, cfg)
+        _, metrics = loss_fn(params, batch, cfg, mesh)
         return metrics
 
     return step

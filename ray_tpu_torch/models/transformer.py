@@ -11,28 +11,71 @@ takes the place of ``lax.scan``; with ``cfg.remat`` each layer runs under
 products without batch dimensions (``dots_with_no_batch_dims_saveable``).
 Numerics follow the reference: compute in ``cfg.dtype``, RMSNorm
 statistics, softmax, router and logits in fp32.
+
+With a ``mesh`` (``ray_tpu_torch.parallel.make_mesh``), params are DTensors
+placed by ``param_logical_axes`` (ZeRO-3 over ``fsdp``) and each rank runs
+its batch rows and sequence chunk: a layer gathers its weights where it
+uses them (``parallel.sharding.gather``, inside the remat region, so the
+backward gathers again and reduce-scatters the gradient), RoPE takes the
+chunk's global positions, attention on a ``sequence`` axis above 1 is ring
+attention, and the loss is the global mean (``loss_fn``).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any, Dict
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.config import TransformerConfig
 from ray_tpu_torch.models.moe import (_silu, init_moe_params, moe_ffn,
+                                      moe_param_logical_axes,
                                       moe_param_shapes)
 from ray_tpu_torch.ops.flash_attention import flash_attention
-from ray_tpu_torch.parallel.ring import reference_attention
+from ray_tpu_torch.parallel.mesh import (BATCH_AXES, TOKEN_AXES, axis_index,
+                                         axis_size, check_supported, psum)
+from ray_tpu_torch.parallel.ring import reference_attention, ring_attention
+from ray_tpu_torch.parallel.sharding import (gather, local_shard,
+                                             logical_placements)
 
 Params = Dict[str, Any]
 
 # ---- parameter structure ---------------------------------------------------
+
+def param_logical_axes(cfg: TransformerConfig) -> Params:
+    """Same-structure dict of logical axis tuples (for shardings)."""
+    lay = {
+        "attn_norm": ("layers", "embed"),
+        "wq": ("layers", "embed", "heads", "qkv_dim"),
+        "wk": ("layers", "embed", "kv_heads", "qkv_dim"),
+        "wv": ("layers", "embed", "kv_heads", "qkv_dim"),
+        "wo": ("layers", "heads", "qkv_dim", "embed"),
+        "mlp_norm": ("layers", "embed"),
+    }
+    if cfg.moe_experts:
+        lay.update(moe_param_logical_axes())
+    else:
+        lay.update({
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        })
+    axes = {
+        "embed": ("vocab", "embed"),
+        "layers": lay,
+        "final_norm": ("embed",),
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
 
 def param_shapes(cfg: TransformerConfig) -> Params:
     """Same-structure dict of each parameter's shape."""
@@ -107,9 +150,35 @@ def init_params(rng: torch.Generator, cfg: TransformerConfig,
     return params
 
 
-def layer(params: Params, i: int) -> Params:
-    """Layer ``i``'s slice of the stacked ``[L, ...]`` weights (views)."""
-    return {k: w[i] for k, w in params["layers"].items()}
+def _layer_shard(w, i: int, local=None):
+    """Layer ``i`` of a stacked ``[L, ...]`` weight: a view, or for a DTensor
+    the DTensor of this rank's slice of its shard (nothing is sent).
+    ``local`` is ``w.to_local()``, taken once for all layers: the layers'
+    gradients then add up in that plain tensor, not as DTensors."""
+    if not isinstance(w, DTensor):
+        return w[i]
+    placements = []
+    for p in w.placements:
+        if isinstance(p, Shard):
+            if p.dim == 0:
+                raise NotImplementedError(
+                    "a param sharded along its stacked layers dim (pipeline "
+                    "stages) is not ported yet: ROADMAP A1b")
+            p = Shard(p.dim - 1)
+        placements.append(p)
+    local = w.to_local() if local is None else local
+    shape = w.shape[1:]
+    return DTensor.from_local(local[i], w.device_mesh, placements,
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def layer(params: Params, i: int, local=None) -> Params:
+    """Layer ``i``'s slice of the stacked ``[L, ...]`` weights (views);
+    ``local``: the DTensor leaves' ``to_local()`` by name."""
+    local = local or {}
+    return {k: _layer_shard(w, i, local.get(k))
+            for k, w in params["layers"].items()}
 
 
 class Transformer(nn.Module):
@@ -165,24 +234,32 @@ def _rope(x, positions, theta):
 
 def _select_attention(cfg: TransformerConfig, device: torch.device,
                       mesh=None) -> str:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded execution (mesh) is not ported yet: ROADMAP.md, the "
-            "parallel layer")
+    """"auto" is the ring on a mesh whose ``sequence`` axis is above 1, else
+    the flash kernels on CUDA and plain attention on the CPU. A sequence
+    split over ranks runs only as the ring (plain or flash attention would
+    see one chunk of it)."""
     impl = cfg.attention_impl
-    if impl == "auto":
-        impl = "pallas" if device.type == "cuda" else "xla"
-    if impl == "ring":
-        raise NotImplementedError(
-            "attention_impl='ring' is not ported yet: ROADMAP.md, the "
-            "parallel layer")
-    if impl not in ("pallas", "xla"):
+    if impl not in ("auto", "pallas", "xla", "ring"):
         raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
+    split = mesh is not None and axis_size(mesh, "sequence") > 1
+    if impl == "auto":
+        impl = "ring" if split else ("pallas" if device.type == "cuda"
+                                     else "xla")
+    if impl == "ring" and mesh is None:
+        raise ValueError("attention_impl='ring' needs a mesh (its "
+                         "'sequence' axis)")
+    if split and impl != "ring":
+        raise NotImplementedError(
+            f"attention_impl={impl!r} on a mesh with 'sequence' > 1: a "
+            f"split sequence runs as ring attention ('ring' or 'auto')")
     return impl
 
 
-def _attention(q, k, v, cfg: TransformerConfig):
-    if _select_attention(cfg, q.device) == "pallas":
+def _attention(q, k, v, cfg: TransformerConfig, mesh=None):
+    impl = _select_attention(cfg, q.device, mesh)
+    if impl == "ring":
+        return ring_attention(q, k, v, mesh, causal=cfg.causal)
+    if impl == "pallas":
         return flash_attention(q, k, v, causal=cfg.causal)
     return reference_attention(q, k, v, causal=cfg.causal)
 
@@ -211,11 +288,11 @@ def attn_out(o, lp, cfg: TransformerConfig):
         -1, wo.shape[-1])
 
 
-def ffn_block(h, lp, cfg: TransformerConfig):
+def ffn_block(h, lp, cfg: TransformerConfig, mesh=None):
     """SwiGLU (or MoE) FFN -> (down, aux); shared by the forward and
     inference. The aux term (MoE load balance) is 0 for the dense FFN."""
     if cfg.moe_experts:
-        return moe_ffn(h, lp, cfg)
+        return moe_ffn(h, lp, cfg, mesh)
     gate = h @ lp["w_gate"].to(cfg.dtype)
     up = h @ lp["w_up"].to(cfg.dtype)
     down = (_silu(gate) * up) @ lp["w_down"].to(cfg.dtype)
@@ -256,19 +333,43 @@ _DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
                                   _dots_policy)
 
 
-def _block(x, lp: Params, cfg: TransformerConfig, positions):
-    """One decoder layer: -> (x, aux), the scanned body of the reference."""
+def _block(x, lp: Params, cfg: TransformerConfig, positions, mesh=None):
+    """One decoder layer: -> (x, aux), the scanned body of the reference.
+    DTensor weights (a mesh) are gathered here, inside the remat region."""
+    lp = {k: gather(w) for k, w in lp.items()}
     h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
     q, k, v = qkv_proj(h, lp, cfg, positions)
     reps = cfg.n_heads // cfg.kv_heads
     if reps > 1:  # GQA: expand kv heads to match q heads (jnp.repeat)
         k = k.repeat_interleave(reps, dim=2)
         v = v.repeat_interleave(reps, dim=2)
-    o = _attention(q, k, v, cfg)
+    o = _attention(q, k, v, cfg, mesh)
     x = x + attn_out(o, lp, cfg)
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-    down, aux = ffn_block(h, lp, cfg)
+    down, aux = ffn_block(h, lp, cfg, mesh)
     return x + down, aux
+
+
+def _layers(params: Params, x, cfg: TransformerConfig, positions,
+            mesh=None):
+    """The decoder layers over x -> (x, summed aux)."""
+    # any policy but "dots" is "nothing", as in the reference
+    kw = ({"context_fn": _DOTS_CONTEXT} if cfg.remat_policy == "dots"
+          else {})
+    # jax.checkpoint's counterpart; without autograd there is nothing to save
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    local = {k: w.to_local() for k, w in params["layers"].items()
+             if isinstance(w, DTensor)}
+    for i in range(cfg.n_layers):
+        lp = layer(params, i, local)
+        if remat:
+            x, layer_aux = checkpoint(_block, x, lp, cfg, positions, mesh,
+                                      use_reentrant=False, **kw)
+        else:
+            x, layer_aux = _block(x, lp, cfg, positions, mesh)
+        aux = aux + layer_aux
+    return x, aux
 
 
 def forward(params: Params, tokens, cfg: TransformerConfig, mesh=None,
@@ -276,33 +377,85 @@ def forward(params: Params, tokens, cfg: TransformerConfig, mesh=None,
     """tokens [B, T] int -> logits [B, T, vocab] fp32, on the params' device.
 
     With ``return_aux=True`` returns (logits, aux), aux being the summed MoE
-    load-balance loss (0.0 for the dense FFN)."""
+    load-balance loss (0.0 for the dense FFN). With a ``mesh``, params are
+    DTensors (``interop.shard_params``), ``tokens`` the global batch (or a
+    DTensor of it), and the logits a DTensor placed by ("batch", "seq",
+    "vocab")."""
+    if mesh is not None:
+        check_supported(mesh, cfg)
+        local = _local_batch(tokens, mesh)
+        logits, aux = _forward_local(params, local, cfg, mesh)
+        B, T = tokens.shape
+        shape = (B, T, logits.shape[-1])
+        logits = DTensor.from_local(
+            logits, mesh, logical_placements(mesh, ("batch", "seq", "vocab")),
+            run_check=False, shape=shape,
+            stride=torch.empty(shape, device="meta").stride())
+        return (logits, aux) if return_aux else logits
     x = embed_tokens(params, tokens, cfg)  # [B, T, d]
-    _select_attention(cfg, x.device, mesh)  # refuse what is not ported first
-    # any policy but "dots" is "nothing", as in the reference
-    kw = ({"context_fn": _DOTS_CONTEXT} if cfg.remat_policy == "dots"
-          else {})
+    _select_attention(cfg, x.device)  # refuse what is not ported first
     positions = torch.arange(x.shape[1], device=x.device)
-    # jax.checkpoint's counterpart; without autograd there is nothing to save
-    remat = cfg.remat and torch.is_grad_enabled()
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        lp = layer(params, i)
-        if remat:
-            x, layer_aux = checkpoint(_block, x, lp, cfg, positions,
-                                      use_reentrant=False, **kw)
-        else:
-            x, layer_aux = _block(x, lp, cfg, positions)
-        aux = aux + layer_aux
+    x, aux = _layers(params, x, cfg, positions)
     logits = lm_head(params, x, cfg)
     return (logits, aux) if return_aux else logits
+
+
+# ---- the meshed forward and loss --------------------------------------------
+
+def _local_batch(x, mesh):
+    """This rank's [B_local, T_local] part of a global [B, T] batch array
+    (placed by ("batch", "seq")), or a DTensor's local shard."""
+    if isinstance(x, DTensor):
+        return x.to_local()
+    placements = logical_placements(mesh, ("batch", "seq"))
+    for d, axes in ((0, BATCH_AXES), (1, ("sequence",))):
+        n = math.prod(axis_size(mesh, a) for a in axes)
+        if x.shape[d] % n:
+            raise ValueError(f"batch dim {d} of {tuple(x.shape)} does not "
+                             f"split evenly over {n} ranks ({axes})")
+    return local_shard(x, mesh, placements)
+
+
+def _forward_local(params: Params, tokens, cfg: TransformerConfig, mesh):
+    """This rank's logits [B_local, T_local, vocab] fp32 and the summed aux
+    (global), from DTensor params: the embedding is gathered once (the
+    token lookup and a tied head share it), each layer gathers its own
+    weights, positions are the chunk's global ones."""
+    embed = gather(params["embed"])
+    x = embed_tokens({"embed": embed}, tokens, cfg)
+    _select_attention(cfg, x.device, mesh)
+    t = x.shape[1]
+    positions = (axis_index(mesh, "sequence") * t
+                 + torch.arange(t, device=x.device))
+    x, aux = _layers(params, x, cfg, positions, mesh)
+    head = {"embed": embed, "final_norm": gather(params["final_norm"])}
+    if not cfg.tie_embeddings:
+        head["lm_head"] = gather(params["lm_head"])
+    return lm_head(head, x, cfg), aux
+
+
+def _global_mean(local, count, mesh):
+    """A rank's mean over its ``count`` tokens -> the global mean's value
+    with the gradient of this rank's share of it, local * count / total
+    (the shares' gradients, summed over ranks by the params' gathers, are
+    the global mean's). On a mesh of one the share is ``local`` exactly."""
+    total = psum(count, mesh, TOKEN_AXES)
+    share = local * (torch.clamp(count, min=1.0)
+                     / torch.clamp(total, min=1.0))
+    return share + (psum(share, mesh, TOKEN_AXES) - share).detach()
 
 
 def loss_fn(params: Params, batch: Dict[str, Any], cfg: TransformerConfig,
             mesh=None):
     """Next-token cross entropy, differentiable (``models/training.py``).
     batch: {"tokens": [B, T]} (targets shifted) or {"inputs": [B, T],
-    "targets": [B, T], optional "mask": [B, T]}."""
+    "targets": [B, T], optional "mask": [B, T]}.
+
+    With a ``mesh`` (DTensor params, the global batch), each rank runs its
+    part of the batch; the loss has the global mean's value and this
+    rank's share of its gradient (``_global_mean``). The MoE aux is the
+    same global value on every rank (``moe.load_balance``), so each of the
+    n ranks holding tokens takes 1/n of its gradient."""
     if "inputs" in batch:
         inputs, targets = batch["inputs"], batch["targets"]
         mask = batch.get("mask")
@@ -310,19 +463,36 @@ def loss_fn(params: Params, batch: Dict[str, Any], cfg: TransformerConfig,
         toks = batch["tokens"]
         inputs, targets = toks[:, :-1], toks[:, 1:]
         mask = None
-    logits, aux = forward(params, inputs, cfg, mesh, return_aux=True)
+    if mesh is None:
+        logits, aux = forward(params, inputs, cfg, return_aux=True)
+    else:
+        check_supported(mesh, cfg)
+        inputs, targets = (_local_batch(inputs, mesh),
+                           _local_batch(targets, mesh))
+        mask = None if mask is None else _local_batch(mask, mesh)
+        logits, aux = _forward_local(params, inputs, cfg, mesh)
     targets = targets.to(logits.device).long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None])[..., 0]
     nll = logz - gold
     if mask is not None:
         mask = mask.to(logits.device, torch.float32)
-        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        count = mask.sum()
+        loss = (nll * mask).sum() / torch.clamp(count, min=1.0)
     else:
+        count = nll.numel()
         loss = nll.mean()
+    if mesh is not None:
+        loss = _global_mean(loss, torch.as_tensor(
+            count, dtype=torch.float32, device=logits.device), mesh)
     metrics = {"loss": loss, "perplexity": torch.exp(loss)}
     if cfg.moe_experts:
         metrics["moe_aux"] = aux
-        loss = loss + cfg.moe_aux_weight * aux
+        weighted = cfg.moe_aux_weight * aux
+        n = 1 if mesh is None else math.prod(axis_size(mesh, a)
+                                             for a in TOKEN_AXES)
+        if n > 1:
+            weighted = weighted / n + (weighted * (1 - 1 / n)).detach()
+        loss = loss + weighted
         metrics["total_loss"] = loss
     return loss, metrics

@@ -44,14 +44,15 @@ def test_ptxas_report_of_an_empty_log_is_empty():
 
 def test_kernel_mutants_edit_lines_occur_once():
     """Each mutant of kernel_mutants.py edits lines that occur exactly once
-    in the checkout's source, so it builds the kernel it names."""
+    in the checkout's source (a kernel under csrc/, or parallel/ring.py),
+    so it builds what it names."""
     from pathlib import Path
 
     import kernel_mutants
 
-    csrc = Path(kernel_mutants._ROOT) / "ray_tpu_torch" / "csrc"
+    pkg = Path(kernel_mutants._ROOT) / "ray_tpu_torch"
     for name, (source, edits, checks) in kernel_mutants.MUTANTS.items():
-        text = (csrc / source).read_text()
+        text = (pkg / source).read_text()
         for old, new in edits:
             assert text.count(old) == 1, (name, old)
             assert old != new

@@ -248,7 +248,8 @@ def test_remat_gives_the_same_step():
 
 def test_remat_policy_dots_and_mesh_raise():
     """remat_policy="dots" trains: a step from the same state gives the
-    "nothing" step's loss, grad norm and params. A mesh still raises."""
+    "nothing" step's loss, grad norm and params. A mesh that is not a
+    DeviceMesh raises (meshes run in tests/test_torch_parallel_train.py)."""
     ct = tcfg.tiny_config(remat=True, attention_impl="pallas")
     inputs, targets = _batch(ct)
     batch = {"inputs": torch.from_numpy(inputs),
@@ -268,9 +269,9 @@ def test_remat_policy_dots_and_mesh_raise():
     for a, b in zip(ttrain.tree_leaves(p0), ttrain.tree_leaves(p1)):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
     tx = ttrain.make_optimizer()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         ttrain.make_train_step(ct, tx, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         ttrain.init_train_state(torch.Generator(), ct, tx, mesh=object(),
                                 device="cpu")
 

@@ -126,11 +126,13 @@ def test_causality_and_module_wrapper():
 
 
 def test_unported_paths_raise():
+    """A mesh must be a DeviceMesh (the meshed paths run in
+    tests/test_torch_parallel_train.py), and ring attention needs one."""
     _, ct, _, pt = _pair()
     toks = torch.from_numpy(_tokens(1, 4))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         ttr.forward(pt, toks, ct, mesh=object())
-    with pytest.raises(NotImplementedError, match="ring"):
+    with pytest.raises(ValueError, match="ring"):
         ttr.forward(pt, toks, dataclasses.replace(ct, attention_impl="ring"))
     with pytest.raises(ValueError, match="attention_impl"):
         ttr.forward(pt, toks, dataclasses.replace(ct, attention_impl="nope"))
