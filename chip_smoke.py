@@ -49,6 +49,21 @@ phase:
   moe_train    the MoE model at 4 layers, batch 4 x 2048, bf16, remat: the
             train check (a) and five AdamW steps with launches counted; ms
             per step and MFU of the active work
+  moe_parallel the MoE layer at [4, 2048] on 4 virtual expert ranks (2
+            experts each) and on 2 virtual sequence ranks, at capacity
+            factor 1.25 and 0.5, against the unsharded layer by moe_layer's
+            checks
+  engine_mesh  the fp32 engine on make_mesh(tensor=1), an NCCL world of one,
+            token for token against the unmeshed engine (the meshed
+            engine's code path only: no split over ranks on one card)
+  tensor    the train cell on 4 virtual tensor ranks (VirtualMesh: each
+            rank's heads through B1/B2/B3 at [32, 2048, 64], the partial
+            sums added in one process): the forward check and train check
+            (a) against the unmeshed plain and fp32 runs, launches 64 /
+            128/64/64, times and a rank's share
+  pipeline  the train cell in 4 virtual GPipe stages of 4 layers on 4
+            microbatches of [1, 2048] (bubble ticks skipped): the same
+            checks and launches, times, the bubble share
   train_mesh   phase train's cell on make_mesh(fsdp=1), an NCCL world of
             one: params and moments as DTensors, each layer's weights
             gathered at use; one step's loss and gradient against the
@@ -172,6 +187,34 @@ _RING_REL_NORM_TOL = 2e-2
 # train_mesh: on a mesh of one every collective is skipped and the DTensor
 # wrapper computes the same ops on the same tensors as the unmeshed step
 _MESH_TOL = 1e-6
+# tensor and pipeline: the model's ranks run in turn on the one card
+# (VirtualMesh): 4 tensor ranks (8 of the 32 heads, 2 of the 8 kv heads,
+# 2048 of the 8192 d_ff columns, 32,064 of the vocabulary rows each), or 4
+# pipeline stages of 4 layers on 4 microbatches of [1, 2048]. The kernel
+# side runs there, the plain bf16 and the fp32 truth unmeshed; the forward
+# and train checks' ratios are set from the unbroken code over 2 weight
+# seeds x 2 batches (kernel_mutants.py's baseline, on the H100). Tensor:
+# the four ranks' bf16 partial sums of the output projections (attention
+# and SwiGLU) round to bf16 each and add in bf16, as a bf16 psum does, so
+# the forward keeps 1.0877-1.0899 times as far from fp32 as the unmeshed
+# plain bf16 one, the gradient 1.0919-1.0945 (wq/wk/wv at most 1.0970),
+# the loss 0.28-9.31 (a scalar at bf16's floor); in fp32 the split forward
+# is 1.02e-5 from the unmeshed one. So 1.15, 1.15 and 16: the mutant that
+# drops a rank's partial reaches 42.7 forward, 33.1 gradient. Pipeline:
+# the same math a row, 1.0038-1.0050 forward, 1.0067-1.0089 gradient,
+# wq/wk/wv at most 1.0158, loss 0.54-2.67: the unmeshed bars hold (the
+# mutant that skips a stage: 40.2 forward, 33.3 gradient).
+_TP, _PP, _PP_MICRO = 4, 4, 4
+_TP_FWD_RATIO = 1.15
+_TP_TRAIN_RATIO = {"loss": 16.0, "grad": 1.15, "attn_grad": 1.15}
+_PP_FWD_RATIO = _FWD_BF16_RATIO
+_PP_TRAIN_RATIO = _TRAIN_BF16_RATIO
+# B1 / B2 / B3 launches, each at [B*H/t = 32, 2048, 64]: a forward runs 16
+# layers x 4 ranks (or x 4 microbatches: the port skips the bubble ticks),
+# a remat train step that forward, its recompute, and one B2 and B3 each
+_AXIS_LAUNCHES = {
+    "forward": {"flash_fwd": 64, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+    "train": {"flash_fwd": 128, "flash_bwd_dq": 64, "flash_bwd_dkv": 64}}
 
 
 def _emit(obj):
@@ -256,7 +299,8 @@ def _sdpa_bwd_ms(q, k, v, do, scale, causal, iters):
 
 def phase_kernels_bwd(fa, seed: int):
     """B2 and B3 against their plain versions (check_bwd) at the training
-    shape and five more; each kernel's time, its plain version's, SDPA's
+    shape and six more (tp_shard: a tensor=4 rank's or a pipeline
+    microbatch's shape); each kernel's time, its plain version's, SDPA's
     backward and the bound."""
     import torch
 
@@ -268,6 +312,7 @@ def phase_kernels_bwd(fa, seed: int):
         ("fp32", 32, 1024, 1024, 128, torch.float32, True),
         ("ragged_t48", 128, 48, 48, 64, torch.bfloat16, True),
         ("tq_ne_tk", 32, 1000, 1536, 64, torch.bfloat16, True),
+        ("tp_shard", 32, 2048, 2048, 64, torch.bfloat16, True),  # tensor=4
     ]
     g = torch.Generator(device="cuda").manual_seed(seed + 5)
     rows = []
@@ -327,7 +372,7 @@ def phase_kernels_bwd(fa, seed: int):
 
 
 def phase_kernels(fa, seed: int):
-    """B1 against its plain version at the forward's shape and five more."""
+    """B1 against its plain version at the forward's shape and six more."""
     import torch
     import torch.nn.functional as F
 
@@ -339,6 +384,8 @@ def phase_kernels(fa, seed: int):
         ("fp32", 32, 1024, 1024, 128, torch.float32, True),
         ("ragged_t48", 128, 48, 48, 64, torch.bfloat16, True),
         ("tq_ne_tk", 32, 1000, 1536, 64, torch.bfloat16, True),
+        # a tensor=4 rank's heads, or a pipeline microbatch: [1*32, 2048]
+        ("tp_shard", 32, 2048, 2048, 64, torch.bfloat16, True),
     ]
     g = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
@@ -607,7 +654,7 @@ def _rel(x, ref) -> float:
 
 def forward_parity(T, cfg, params, p32, tokens,
                    ratio_tol: float = _FWD_BF16_RATIO,
-                   rel_tol: float = _FWD_REL_TOL) -> dict:
+                   rel_tol: float = _FWD_REL_TOL, mesh=None) -> dict:
     """The forward through the kernel (``cfg``) held against plain
     attention two ways:
       - fp32: the same forward in fp32 through the kernel against fp32
@@ -620,11 +667,13 @@ def forward_parity(T, cfg, params, p32, tokens,
     A direct bf16-vs-bf16 bound cannot hold: this random-weight model is
     chaotic in bf16. Measured on the H100 with P.V made exact to fp32 in
     the kernel, the two bf16 forwards still differed by 2.5%, while each
-    kept 3.05% from the fp32 forward (printed as rel_bf16_*).
+    kept 3.05% from the fp32 forward (printed as rel_bf16_*). With a
+    ``mesh`` (a VirtualMesh) both kernel forwards run on it; the plain and
+    the fp32 truth stay unmeshed.
     -> the distances, their ratio, the logits' shape, "finite" and "ok"."""
     import torch
 
-    logits = T.forward(params, tokens, cfg)
+    logits = T.forward(params, tokens, cfg, mesh)
     torch.cuda.synchronize()
     finite = bool(torch.isfinite(logits).all())
     plain_cfg = dataclasses.replace(cfg, attention_impl="xla")
@@ -638,7 +687,7 @@ def forward_parity(T, cfg, params, p32, tokens,
                 "kernel_vs_plain": _rel(logits, ref)}
     shape = list(logits.shape)
     del ref, logits
-    rel_fp32 = _rel(T.forward(p32, tokens, cfg32), truth)
+    rel_fp32 = _rel(T.forward(p32, tokens, cfg32, mesh), truth)
     del truth
     ratio = rel_bf16["kernel_vs_fp32"] / rel_bf16["plain_vs_fp32"]
     return {"logits_shape": shape, "finite": finite,
@@ -1091,7 +1140,7 @@ def phase_entry():
 
 def _grads(T, TR, params, batch, cfg, mesh=None):
     """(loss, grads) of one step's loss_fn, leaves in tree order; on a
-    ``mesh`` (DTensor params) the grads' local shards."""
+    DeviceMesh (DTensor params) the grads' local shards."""
     import torch
 
     leaves = TR.tree_leaves(params)
@@ -1103,8 +1152,8 @@ def _grads(T, TR, params, batch, cfg, mesh=None):
     finally:
         for p in leaves:
             p.requires_grad_(False)
-    if mesh is not None:
-        grads = [g.to_local() for g in grads]
+    # a DeviceMesh gives DTensor grads, a VirtualMesh plain ones
+    grads = [g.to_local() if hasattr(g, "to_local") else g for g in grads]
     return loss.detach(), grads
 
 
@@ -1145,7 +1194,8 @@ def train_batch(cfg, seed: int):
     return {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
 
 
-def train_parity(T, TR, cfg, params, batch) -> dict:
+def train_parity(T, TR, cfg, params, batch, mesh=None,
+                 ratio_tol=None) -> dict:
     """One step's loss and gradients three ways on identical weights and
     batch: bf16 through the kernels (``cfg``), bf16 through plain attention,
     and fp32 with plain attention as the truth (the caller turns TF32 off).
@@ -1153,15 +1203,18 @@ def train_parity(T, TR, cfg, params, batch) -> dict:
     the flattened gradient of all leaves, and each leaf of _ATTN_GRAD_LEAVES;
     the kernel step's distance over the plain step's ("kernel_over_plain":
     loss, grad, and attn_grad, the largest of the leaves'); the three
-    losses; and "ok", whether every ratio is within _TRAIN_BF16_RATIO."""
+    losses; and "ok", whether every ratio is within ``ratio_tol`` (default
+    _TRAIN_BF16_RATIO). With a ``mesh`` (a VirtualMesh) the kernel step
+    runs on it; the plain and the fp32 steps stay unmeshed."""
     import torch
 
+    ratio_tol = ratio_tol or _TRAIN_BF16_RATIO
     names = _leaf_names(params)
     attn = [names.index(n) for n in _ATTN_GRAD_LEAVES]
     plain_cfg = dataclasses.replace(cfg, attention_impl="xla")
     cfg32 = dataclasses.replace(plain_cfg, dtype=torch.float32,
                                 param_dtype=torch.float32)
-    loss_k, grads_k = _grads(T, TR, params, batch, cfg)
+    loss_k, grads_k = _grads(T, TR, params, batch, cfg, mesh)
     loss_p, grads_p = _grads(T, TR, params, batch, plain_cfg)
     p32 = TR.tree_map(lambda w: w.float(), params)
     loss_32, grads_32 = _grads(T, TR, p32, batch, cfg32)
@@ -1188,8 +1241,8 @@ def train_parity(T, TR, cfg, params, batch) -> dict:
     ratio["attn_grad"] = max(leaf_ratio.values())
     return {"rel_to_fp32": rel, "attn_leaf_ratio": leaf_ratio,
             "kernel_over_plain": ratio, "losses": losses,
-            "ratio_tol": _TRAIN_BF16_RATIO,
-            "ok": all(ratio[k] <= _TRAIN_BF16_RATIO[k] for k in ratio)}
+            "ratio_tol": ratio_tol,
+            "ok": all(ratio[k] <= ratio_tol[k] for k in ratio)}
 
 
 def _counts(fa):
@@ -1490,6 +1543,248 @@ def phase_train_dots(fa, T, TR, C, params, seed: int):
     return runs["dots"]["launches_per_step"][0]
 
 
+def axis_check(fa, T, TR, cfg, params, vm, tokens, batch, fwd_ratio,
+               train_ratio) -> dict:
+    """The forward check (forward_parity) and train check (a)
+    (train_parity) with the kernel side on the VirtualMesh ``vm``, and the
+    launches of one forward and one train step there."""
+    import torch
+
+    _zero_counts(fa)
+    with torch.no_grad():
+        T.forward(params, tokens, cfg, vm)
+    torch.cuda.synchronize()
+    fwd_launches = _counts(fa)
+    fwd = forward_parity(T, cfg, params, params, tokens, fwd_ratio,
+                         _FWD_REL_TOL, vm)
+    torch.cuda.empty_cache()
+    _zero_counts(fa)
+    train = train_parity(T, TR, cfg, params, batch, vm, train_ratio)
+    train_launches = _counts(fa)  # the plain and fp32 steps launch nothing
+    torch.cuda.empty_cache()
+    launches_ok = (fwd_launches == _AXIS_LAUNCHES["forward"]
+                   and train_launches == _AXIS_LAUNCHES["train"])
+    return {"forward": fwd, "train": train, "forward_launches": fwd_launches,
+            "train_launches": train_launches,
+            "launches_want": _AXIS_LAUNCHES, "launches_ok": launches_ok,
+            "ok": fwd["ok"] and train["ok"] and launches_ok}
+
+
+def pipeline_config(C):
+    """The train cell in _PP stages of 4 layers on _PP_MICRO microbatches."""
+    return dataclasses.replace(train_config(C),
+                               pipeline_microbatches=_PP_MICRO)
+
+
+def _axis_times(T, TR, cfg, params, vm, tokens, batch) -> dict:
+    """ms of a forward (CUDA events, 3 runs) and of a forward + backward
+    (host clock around synchronized calls, 2 runs) on ``vm`` and unmeshed,
+    in this order: meshed, unmeshed, unmeshed, meshed."""
+    import torch
+
+    def fwd(mesh):
+        with torch.no_grad():
+            return _time_ms(lambda: T.forward(params, tokens, cfg, mesh), 3,
+                            1)
+
+    def grad(mesh):
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _grads(T, TR, params, batch, cfg, mesh)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return min(walls)
+
+    out = {"forward_ms": fwd(vm), "forward_unmeshed_ms": fwd(None)}
+    out["grad_step_unmeshed_ms"] = grad(None)
+    out["grad_step_ms"] = grad(vm)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tensor(fa, T, TR, C, params, seed: int):
+    """The train cell on _TP virtual tensor ranks (VirtualMesh("tensor",
+    4)): each rank's heads through B1/B2/B3 at [32, 2048, 64], its d_ff
+    columns and vocabulary rows, the partial sums added in rank order.
+    axis_check within _TP_FWD_RATIO and _TP_TRAIN_RATIO, launches exactly
+    _AXIS_LAUNCHES; times beside the unmeshed ones, and a rank's share
+    (each rank does a quarter of the work; the all-reduces are not on
+    this card)."""
+    from ray_tpu_torch.parallel.mesh import VirtualMesh
+
+    cfg = train_config(C)
+    vm = VirtualMesh("tensor", _TP)
+    tokens, batch = forward_tokens(cfg, seed), train_batch(cfg, seed + 3)
+    row = axis_check(fa, T, TR, cfg, params, vm, tokens, batch,
+                     _TP_FWD_RATIO, _TP_TRAIN_RATIO)
+    times = _axis_times(T, TR, cfg, params, vm, tokens, batch)
+    _emit({"phase": "tensor", "config": "llama3-1b", "virtual_ranks": _TP,
+           "batch": [4, 2048], "remat": True, "dtype": "bfloat16",
+           "b1_b2_b3_shape": [4 * cfg.n_heads // _TP, 2048, 64],
+           "fwd_ratio_tol": _TP_FWD_RATIO,
+           "train_ratio_tol": _TP_TRAIN_RATIO, **row, **times,
+           "per_rank_forward_ms": times["forward_ms"] / _TP,
+           "per_rank_grad_step_ms": times["grad_step_ms"] / _TP})
+    if not row["ok"]:
+        raise AssertionError("tensor phase failed")
+    return row
+
+
+def phase_pipeline(fa, T, TR, C, params, seed: int):
+    """The train cell in _PP virtual stages (VirtualMesh("pipeline", 4)) of
+    4 layers on _PP_MICRO microbatches of [1, 2048]: the GPipe schedule of
+    parallel/pipeline.py in one process, the hand-off a copy, the bubble
+    ticks skipped. axis_check within _PP_FWD_RATIO and _PP_TRAIN_RATIO,
+    launches exactly _AXIS_LAUNCHES; times beside the unmeshed ones. A
+    stage's work per microbatch is the measured time over S*M, and a real
+    pipeline's step takes M + S - 1 such ticks (bubble share (S-1)/(M+S-1),
+    derived, not measured across cards)."""
+    from ray_tpu_torch.parallel.mesh import VirtualMesh
+
+    cfg = pipeline_config(C)
+    vm = VirtualMesh("pipeline", _PP)
+    tokens, batch = forward_tokens(cfg, seed), train_batch(cfg, seed + 3)
+    row = axis_check(fa, T, TR, cfg, params, vm, tokens, batch,
+                     _PP_FWD_RATIO, _PP_TRAIN_RATIO)
+    times = _axis_times(T, TR, cfg, params, vm, tokens, batch)
+    ticks, work = _PP_MICRO + _PP - 1, _PP * _PP_MICRO
+    _emit({"phase": "pipeline", "config": "llama3-1b", "virtual_stages": _PP,
+           "microbatches": _PP_MICRO, "microbatch": [1, 2048],
+           "bubble_ticks": "skipped", "remat": True, "dtype": "bfloat16",
+           "b1_b2_b3_shape": [cfg.n_heads, 2048, 64],
+           "fwd_ratio_tol": _PP_FWD_RATIO,
+           "train_ratio_tol": _PP_TRAIN_RATIO, **row, **times,
+           "bubble_share": (_PP - 1) / ticks,
+           "per_rank_forward_ms_derived": times["forward_ms"] / work * ticks,
+           "per_rank_grad_step_ms_derived":
+               times["grad_step_ms"] / work * ticks})
+    if not row["ok"]:
+        raise AssertionError("pipeline phase failed")
+    return row
+
+
+def phase_moe_parallel(M, cfg, params, seed: int):
+    """Layer 0 of the MoE model at [4, 2048] bf16 on 4 virtual expert ranks
+    (2 experts each: each routes every token, runs its experts' kept slots,
+    the partial outputs summed) and on 2 virtual sequence ranks (chunks of
+    1024 tokens; capacity claimed along the whole row, rank 1 offset by
+    rank 0's counts), at capacity factor 1.25 and 0.5, each against the
+    unsharded moe_ffn by moe_layer's checks: expert ids and kept slots
+    equal, the output within 1.05 (2u|y| + 6u A) + 1e-6 per element and
+    1e-2 as a whole; at 0.5 some slots must drop. Times beside the
+    unsharded layer's."""
+    import torch
+
+    from ray_tpu_torch.parallel.mesh import VirtualMesh
+
+    lp = {k: params["layers"][k][0] for k in ("router", "w_gate", "w_up",
+                                              "w_down")}
+    g = torch.Generator(device="cuda").manual_seed(seed + 11)
+    h = torch.randn(4, 2048, cfg.d_model, generator=g,
+                    device="cuda").to(cfg.dtype)
+    u, ok = _MOE_LAYER_UNIT, True
+    for cf in (cfg.moe_capacity_factor, _MOE_LAYER_DROP_CF):
+        c = dataclasses.replace(cfg, moe_capacity_factor=cf)
+        with torch.no_grad():
+            y_u, _, top_u, kept_u = M.moe_layer(h, lp, c)
+            tol = 1.05 * (2 * u * y_u.float().abs()
+                          + 6 * u * _moe_abs_path(M, h, lp, c)) + 1e-6
+            unsharded_ms = _time_ms(lambda: M.moe_layer(h, lp, c), 5)
+            for axis, n in (("expert", 4), ("sequence", 2)):
+                vm = VirtualMesh(axis, n)
+                y, _, top_i, kept = M.moe_layer(h, lp, c, vm)
+                torch.cuda.synchronize()
+                dy = y.float() - y_u.float()
+                row = {"same_expert_ids": torch.equal(top_i, top_u),
+                       "same_kept": torch.equal(kept, kept_u),
+                       "dropped_share": 1 - kept.float().mean().item(),
+                       "max_abs_err": dy.abs().max().item(),
+                       "err_over_tol": (dy.abs() / tol).max().item(),
+                       "rel_norm_err": (dy.norm()
+                                        / y_u.float().norm()).item(),
+                       "finite": bool(torch.isfinite(y.float()).all()),
+                       "ms": _time_ms(lambda: M.moe_layer(h, lp, c, vm), 5),
+                       "unsharded_ms": unsharded_ms}
+                row["ok"] = (row["same_expert_ids"] and row["same_kept"]
+                             and row["finite"] and row["err_over_tol"] <= 1
+                             and row["rel_norm_err"] <= _MOE_LAYER_REL_TOL
+                             and (cf == cfg.moe_capacity_factor
+                                  or row["dropped_share"] > 0))
+                _emit({"phase": "moe_parallel", "axis": axis,
+                       "virtual_ranks": n, "shape": [4, 2048, cfg.d_model],
+                       "dtype": "bfloat16", **_MOE,
+                       "moe_capacity_factor": cf,
+                       "tol": f"1.05*(2u|y| + 6u*sum_k p|act|@|W_down|) + "
+                              f"1e-6, u={u}",
+                       "rel_norm_tol": _MOE_LAYER_REL_TOL, **row})
+                ok = ok and row["ok"]
+        torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("the expert- or sequence-split MoE layer "
+                             "disagrees with the unsharded one")
+
+
+def phase_engine_mesh(E, cfg, p32, seed: int):
+    """The fp32 engine on make_mesh(tensor=1), an NCCL world of one, token
+    for token against the unmeshed engine on the same prompts. It covers
+    the meshed engine's code path on the card (its rank's weights and
+    cache, the reductions and the logits' gather, all over groups of one);
+    the splits over real ranks run in tests/test_torch_multicard.py. The
+    process group is destroyed after."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import make_mesh
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                param_dtype=torch.float32)
+    rng = random.Random(seed + 7)
+    prompts = [[rng.randint(1, cfg.vocab_size - 1) for _ in range(n)]
+               for n in (5, 17, 40, 64)]
+    mesh = make_mesh(tensor=1)
+    got, walls = {}, {}
+    try:
+        for tag, m in (("unmeshed", None), ("meshed", mesh)):
+            eng = E.InferenceEngine(p32, cfg32, slots=8, max_prompt_len=64,
+                                    max_new_tokens=32, greedy=True,
+                                    seed=seed, mesh=m)
+            t0 = time.perf_counter()
+            reqs = [eng.submit(p) for p in prompts]
+            for _ in range(1000):
+                if all(r.done.is_set() for r in reqs):
+                    break
+                eng.step()
+            walls[tag] = time.perf_counter() - t0
+            got[tag] = [list(r.tokens) for r in reqs]
+            del eng
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    match = [a == b for a, b in zip(got["meshed"], got["unmeshed"])]
+    _emit({"phase": "engine_mesh", "dtype": "float32", "tf32": False,
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+           "backend": "nccl", "covers": "the meshed engine's code path on a "
+           "world of one; no split over ranks",
+           "prompt_lens": [len(p) for p in prompts], "max_new_tokens": 32,
+           "match_unmeshed": match, "wall_s": walls})
+    if not all(match):
+        raise AssertionError("the meshed engine's tokens differ from the "
+                             "unmeshed engine's")
+
+
+def _axis_launches(tensor_row, pipeline_row, name: str) -> dict:
+    """A kernel's launches on the tensor and pipeline paths (a forward is
+    listed only where the kernel runs there)."""
+    out = {}
+    for tag, row in (("tensor", tensor_row), ("pipeline", pipeline_row)):
+        if row["forward_launches"][name]:
+            out[f"{tag}_forward"] = row["forward_launches"][name]
+        out[f"{tag}_train_step"] = row["train_launches"][name]
+    return out
+
+
 def run(seed: int) -> int:
     import torch
 
@@ -1567,6 +1862,7 @@ def run(seed: int) -> int:
     launches = attempt("forward", phase_forward, fa, T, cfg, params, p32,
                        seed)
     attempt("engine", phase_engine_fp32, E, G, cfg, p32, seed)
+    attempt("engine_mesh", phase_engine_mesh, E, cfg, p32, seed)
     del p32
     torch.cuda.empty_cache()
     attempt("serving", phase_serving, E, cfg, params, seed)
@@ -1580,6 +1876,9 @@ def run(seed: int) -> int:
     moe_launches = moe_train_launches = None
     if moe_params is not None:
         attempt("moe_layer", phase_moe_layer, M, moe, moe_params, seed)
+        attempt("moe_parallel", phase_moe_parallel, M, moe, moe_params,
+                seed)
+        torch.cuda.empty_cache()
         moe_launches = attempt("moe_forward", phase_moe_forward, fa, T, M,
                                moe, moe_params, seed)
         torch.cuda.empty_cache()
@@ -1599,6 +1898,11 @@ def run(seed: int) -> int:
     del moe_params
     torch.cuda.empty_cache()
 
+    tensor_row = attempt("tensor", phase_tensor, fa, T, TR, C, params, seed)
+    torch.cuda.empty_cache()
+    pipeline_row = attempt("pipeline", phase_pipeline, fa, T, TR, C, params,
+                           seed)
+    torch.cuda.empty_cache()
     mesh_launches = attempt("train_mesh", phase_train_mesh, fa, T, TR, C,
                             params, seed)
     torch.cuda.empty_cache()
@@ -1629,7 +1933,8 @@ def run(seed: int) -> int:
             "moe_train_step": moe_train_launches["flash_fwd"],
             "train_dots_step": dots_launches["flash_fwd"],
             "ring_forward": ring_launches["ring_forward"],
-            "train_mesh_step": mesh_launches["flash_fwd"]}}]
+            "train_mesh_step": mesh_launches["flash_fwd"],
+            **_axis_launches(tensor_row, pipeline_row, "flash_fwd")}}]
     for name, line_no, source, err in (
             ("flash_bwd_dq", 87, "flash_bwd.cu", "dq_max_abs_err"),
             ("flash_bwd_dkv", 111, "flash_bwd_dkv.cu", None)):
@@ -1654,7 +1959,8 @@ def run(seed: int) -> int:
                 "ring_backward": ring_launches[
                     "ring_backward" if name == "flash_bwd_dq"
                     else "ring_backward_dkv"],
-                "train_mesh_step": mesh_launches[name]}})
+                "train_mesh_step": mesh_launches[name],
+                **_axis_launches(tensor_row, pipeline_row, name)}})
     _emit({"kernels": line})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -30,10 +30,16 @@ they apply, for each mutant:
   ring        chip_smoke.py's ring check, ``chip_smoke.ring_check``: ring
               attention for 4 virtual ranks against B1 and B2/B3 over the
               whole sequence (``check_ring_fwd``, ``check_ring_bwd``) and
-              its launch counts, on each of chip_smoke's _RING_CASES.
+              its launch counts, on each of chip_smoke's _RING_CASES;
+  tensor      chip_smoke.py's tensor check, ``chip_smoke.axis_check`` on
+              4 virtual tensor ranks: the forward check and train check (a)
+              of the llama3-1b train cell within _TP_FWD_RATIO and
+              _TP_TRAIN_RATIO, and the launch counts;
+  pipeline    the same on 4 virtual pipeline stages and 4 microbatches,
+              within _PP_FWD_RATIO and _PP_TRAIN_RATIO.
 
-The baseline's train, moe_forward and moe_train checks run over every
---weight-seeds x --batch-seeds pair: the spread of the plain bf16 step or
+The baseline's train, moe_forward, moe_train, tensor and pipeline checks
+run over every --weight-seeds x --batch-seeds pair: the spread of the plain bf16 step or
 forward that the ratios are set from; its other checks, and every mutant's,
 run at chip_smoke's own seeds (weight seed --seed, batch seed --seed + 3;
 for the MoE checks --seed + 100 and + 101, as chip_smoke.py draws them). The mutants, each a few edited lines of one
@@ -52,6 +58,10 @@ source (a ``csrc`` kernel, or ``parallel/ring.py``) in a copy of
                    (ring)
   ring_no_rescale  the LSE merge adds the running output without its
                    weight e^(lse_a - lse) (ring)
+  tensor_drop_partial  the sum of the tensor ranks' partial results
+                   (``region_sum``) leaves out the last rank's (tensor)
+  pipeline_skip_stage  the pipeline's hand-off gives stage i + 2 the
+                   output of stage i (stage 1 keeps stage 0's) (pipeline)
 
 One JSON line per check run. Exits non-zero unless every check passes the
 baseline and refuses every mutant it is run on. Needs an NVIDIA GPU and
@@ -103,9 +113,18 @@ MUTANTS = {
         ("    return w_a * o_a.float() + w_b * o_b.float(), lse\n",
          "    return o_a.float() + w_b * o_b.float(), lse\n")],
         ["ring"]),
+    "tensor_drop_partial": ("parallel/mesh.py", [
+        ("    for p in parts[1:]:\n",
+         "    for p in parts[1:-1]:\n")],
+        ["tensor"]),
+    "pipeline_skip_stage": ("parallel/pipeline.py", [
+        ("            return {s + step: x for s, x in sent.items()\n",
+         "            return {s + step: sent.get(s - step, x)\n"
+         "                    for s, x in sent.items()\n")],
+        ["pipeline"]),
 }
 CHECKS = ["check_fwd", "forward", "check_bwd", "train", "moe_forward",
-          "moe_train", "ring"]
+          "moe_train", "ring", "tensor", "pipeline"]
 
 # argv: package root, seed, weight seeds, batch seeds, checks (JSON lists).
 # The package root comes first on sys.path, so ray_tpu_torch is the copy
@@ -197,6 +216,26 @@ if "ring" in checks:
     for case in cs._RING_CASES:
         row = cs.ring_check(fa, R, case, seed, timed=False)
         print(json.dumps({"check": "ring", **row}), flush=True)
+        torch.cuda.empty_cache()
+
+from ray_tpu_torch.parallel.mesh import VirtualMesh
+for check, cfg, n, ratios in (
+        ("tensor", cs.train_config(C), cs._TP,
+         (cs._TP_FWD_RATIO, cs._TP_TRAIN_RATIO)),
+        ("pipeline", cs.pipeline_config(C), cs._PP,
+         (cs._PP_FWD_RATIO, cs._PP_TRAIN_RATIO))):
+    if check not in checks:
+        continue
+    for ws in json.loads(sys.argv[3]):
+        params = T.init_params(torch.Generator(device="cuda").manual_seed(ws),
+                               cfg, device="cuda")
+        for bs in json.loads(sys.argv[4]):
+            row = cs.axis_check(fa, T, TR, cfg, params, VirtualMesh(check, n),
+                                cs.forward_tokens(cfg, bs - 3),
+                                cs.train_batch(cfg, bs), *ratios)
+            print(json.dumps({"check": check, "weight_seed": ws,
+                              "batch_seed": bs, **row}), flush=True)
+        del params
         torch.cuda.empty_cache()
 """
 

@@ -10,8 +10,8 @@ weights from a generator seeded with 0) with its example arguments, tokens
     logits = fn(*args)   # [4, 512, 50304] fp32
 
 ``dryrun_multichip(n)`` runs one train step of a tiny decoder on each mesh
-of the reference's 8-device sweep that the port runs, in a world of n
-ranks, and holds their losses together (a spread below 2e-3):
+of the reference's 8-device sweep, and two more, in a world of n ranks, and
+holds their losses together (a spread below 2e-3):
 
     dryrun_multichip(8)                 # 8 cards, NCCL
     dryrun_multichip(8, device="cpu")   # 8 processes, gloo
@@ -41,26 +41,39 @@ def entry(device=None, cfg=None, tokens_shape=(4, 512)):
     return fn, (params, tokens)
 
 
-# The reference's n=8 sweep (__graft_entry__.py:159-187) without the meshes
-# that need tensor, pipeline or expert above 1 (ROADMAP A1b), plus the
-# sequence=4 mesh. MoE runs on two batch-split meshes.
+# The reference's n=8 sweep (__graft_entry__.py:159-187): 5 dense meshes
+# and 2 MoE meshes, plus sequence=4 (dense) and data=2 x fsdp=4 (MoE).
 DENSE_MESHES = (
+    dict(fsdp=4, tensor=2),
     dict(data=2, fsdp=2, sequence=2),
     dict(fsdp=8),
+    dict(data=2, fsdp=1, pipeline=2, tensor=2),
     dict(slices=2, fsdp=4),
     dict(sequence=4, fsdp=2),
 )
-MOE_MESHES = (dict(fsdp=8), dict(data=2, fsdp=4))
+MOE_MESHES = (dict(fsdp=1, expert=2, pipeline=2, sequence=2), dict(fsdp=8),
+              dict(data=2, fsdp=4))
 SPREAD_TOL = 2e-3
 
 
-def _meshes(n: int) -> list:
-    """The meshes for n ranks other than 8: the reference's spread without
-    the axes this port refuses (sequence 2 when 4 divides n, data 2 when 32
-    does, the rest fsdp), and fsdp=n beside it to hold it against."""
+def _axis_sizes(n: int) -> dict:
+    """The reference's spread of n ranks over the axes (its
+    ``_axis_sizes``): expert and pipeline 2 when 8 divides n, sequence 2
+    when 4 does, tensor 2 when 16 does or n is even but not a multiple of
+    8, data 2 when 32 does, the rest fsdp."""
+    expert = pipeline = 2 if n % 8 == 0 else 1
     sequence = 2 if n % 4 == 0 else 1
+    tensor = 2 if n % 16 == 0 or (n % 2 == 0 and n % 8 != 0) else 1
     data = 2 if n % 32 == 0 else 1
-    spread = dict(data=data, fsdp=n // (data * sequence), sequence=sequence)
+    fsdp = n // (data * expert * pipeline * sequence * tensor)
+    return dict(data=data, fsdp=fsdp, expert=expert, pipeline=pipeline,
+                sequence=sequence, tensor=tensor)
+
+
+def _meshes(n: int) -> list:
+    """The meshes for n ranks other than 8: the reference's spread and
+    fsdp=n beside it to hold it against."""
+    spread = _axis_sizes(n)
     return [spread] if spread["fsdp"] == n else [spread, dict(fsdp=n)]
 
 
@@ -96,9 +109,12 @@ def _dryrun_rank(rank: int, n: int, device_type: str):
     device = torch.device(device_type)
     if n != 8:
         meshes = _meshes(n)
-        return {"meshes": meshes,
-                "dense": [_dryrun_step(m, False, 2 * n, 64, device)
-                          for m in meshes], "moe": []}
+        moe = meshes[0]["expert"] > 1  # MoE where the spread has experts
+        losses = [_dryrun_step(m, moe, 2 * n, 64, device) for m in meshes]
+        return {"meshes": [] if moe else meshes,
+                "dense": [] if moe else losses,
+                "moe_meshes": meshes if moe else [],
+                "moe": losses if moe else []}
     dense = [_dryrun_step(m, False, 8, 64, device) for m in DENSE_MESHES]
     moe = [_dryrun_step(m, True, 8, 64, device) for m in MOE_MESHES]
     return {"meshes": list(DENSE_MESHES), "dense": dense,
@@ -106,7 +122,7 @@ def _dryrun_rank(rank: int, n: int, device_type: str):
 
 
 def dryrun_multichip(n_devices: int, device=None, timeout: float = 600.0):
-    """One train step on each supported mesh in a world of ``n_devices``
+    """One train step on each mesh of the sweep in a world of ``n_devices``
     ranks: on the card (NCCL, one card a rank; raises with fewer cards)
     unless the caller passes ``device="cpu"`` (gloo). With 8 ranks the
     dense losses of DENSE_MESHES, and the MoE losses of MOE_MESHES, must

@@ -76,11 +76,12 @@ def _place(tree, placements, mesh):
 
 
 def shard_params(mesh, params, cfg: TransformerConfig, rules=None):
-    """Params -> DTensors placed by ``param_logical_axes`` on ``mesh``.
+    """Params -> DTensors placed by ``param_logical_axes`` on ``mesh`` (the
+    layer stacks split over ``pipeline`` when it is above 1).
     ``params`` is the reference's pytree as numpy (through
     ``params_from_numpy``, onto this rank's device) or the port's own
     params; every rank passes the same values."""
-    from ray_tpu_torch.models.transformer import param_logical_axes
+    from ray_tpu_torch.models.transformer import placed_logical_axes
     from ray_tpu_torch.parallel.mesh import mesh_device
     from ray_tpu_torch.parallel.sharding import tree_shardings
 
@@ -89,7 +90,7 @@ def shard_params(mesh, params, cfg: TransformerConfig, rules=None):
         leaf = next(iter(leaf.values()))
     if not isinstance(leaf, torch.Tensor):
         params = params_from_numpy(params, cfg, mesh_device(mesh))
-    return _place(params, tree_shardings(mesh, param_logical_axes(cfg),
+    return _place(params, tree_shardings(mesh, placed_logical_axes(cfg, mesh),
                                          rules), mesh)
 
 

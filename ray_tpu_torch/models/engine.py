@@ -16,6 +16,19 @@ The same slot scheduler over the same device functions:
     chunk into pinned memory, and a CUDA event recorded after that copy says
     when the chunk is ready. Under ``serve_forever`` a fetcher thread waits
     on those events so the dispatch loop never blocks on a transfer.
+
+With a ``mesh`` (the reference's tensor-parallel engine,
+``ray_tpu/models/engine.py:315-322``): each rank keeps its own heads, kv
+heads, d_ff columns, vocabulary rows and experts (the ``tensor`` and
+``expert`` axes; every other axis is a replica of the engine) and its kv
+heads' part of the cache; decode and prefill sum the attention and FFN
+outputs over the ranks and gather the logits before sampling. The
+reference is one controller; here every rank runs its own engine, so all
+ranks must run the same schedule: drive it by ``step()`` with the same
+submissions on every rank, and the same ``seed`` (the sampling draws then
+agree). ``serve_forever`` admits requests as they come and would need rank
+0's admissions broadcast: on more than one rank it is refused (ROADMAP
+A1c).
 """
 
 from __future__ import annotations
@@ -32,11 +45,14 @@ import torch
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.config import TransformerConfig
-from ray_tpu_torch.models.generate import (_final_logits, _gqa_attention,
-                                           _prefill_hidden, sample)
-from ray_tpu_torch.models.transformer import (Params, attn_out, embed_tokens,
-                                              ffn_block, layer, qkv_proj,
+from ray_tpu_torch.models.generate import (_attn_sum, _ffn, _final_logits,
+                                           _gqa_attention, _prefill_hidden,
+                                           sample)
+from ray_tpu_torch.models.transformer import (Params, embed_tokens, layer,
+                                              param_logical_axes, qkv_proj,
                                               rms_norm)
+from ray_tpu_torch.parallel.mesh import check_supported, mesh_device
+from ray_tpu_torch.parallel.sharding import local_shard, logical_placements
 
 SlotCache = Dict[str, torch.Tensor]
 # {"k"/"v": [L, B, S, KV, hd], "pos": [B], "start": [B]}: pos[b] is slot b's
@@ -44,8 +60,10 @@ SlotCache = Dict[str, torch.Tensor]
 
 
 def init_slot_cache(cfg: TransformerConfig, slots: int, max_len: int,
-                    device) -> SlotCache:
-    shape = (cfg.n_layers, slots, max_len, cfg.kv_heads, cfg.head_dim)
+                    device, kv_heads=None) -> SlotCache:
+    """``kv_heads``: this rank's, on a tensor mesh (default all)."""
+    shape = (cfg.n_layers, slots, max_len, kv_heads or cfg.kv_heads,
+             cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "pos": torch.zeros(slots, dtype=torch.int32, device=device),
@@ -59,28 +77,29 @@ def _sample(logits, rng, greedy: bool, temperature):
 @torch.no_grad()
 def prefill_slot(params: Params, cache: SlotCache, tokens, slot, start,
                  rng, cfg: TransformerConfig, greedy: bool = True,
-                 temperature: float = 1.0):
+                 temperature: float = 1.0, mesh=None):
     """Run the prompt ``tokens`` [1, P] (left-padded to its bucket, first
     real token at ``start``) and write its K/V into slot row ``slot``;
     -> (cache, first sampled token [])."""
     dev = cache["pos"].device
     cache, toks = prefill_slots(
         params, cache, tokens, torch.as_tensor([slot], device=dev),
-        torch.as_tensor([start], device=dev), rng, cfg, greedy, temperature)
+        torch.as_tensor([start], device=dev), rng, cfg, greedy, temperature,
+        mesh)
     return cache, toks[0]
 
 
 @torch.no_grad()
 def prefill_slots(params: Params, cache: SlotCache, tokens, slots, starts,
                   rng, cfg: TransformerConfig, greedy: bool = True,
-                  temperature: float = 1.0):
+                  temperature: float = 1.0, mesh=None):
     """Batched prefill: ``tokens`` [K, P] (left-padded to one shared bucket,
     first real token of row i at ``starts[i]``) lands in cache rows
     ``slots`` [K]; -> (cache, first sampled tokens [K]). The cache is
-    updated in place."""
+    updated in place. ``mesh``: the engine's (module docstring)."""
     K, P = tokens.shape
-    x, cK = _prefill_hidden(params, tokens, cfg, P, starts)
-    last = _final_logits(params, x[:, -1:], cfg)[:, 0]  # [K, V]
+    x, cK = _prefill_hidden(params, tokens, cfg, P, starts, mesh)
+    last = _final_logits(params, x[:, -1:], cfg, mesh)[:, 0]  # [K, V]
     toks = _sample(last, rng, greedy, temperature)      # [K]
     slots = slots.to(cache["pos"].device).long()
     cache["k"][:, slots, :P] = cK["k"].to(cache["k"].dtype)
@@ -105,13 +124,13 @@ def _write_rows(layer_cache, kv, pos):
 
 
 def _decode_one(params: Params, cache: SlotCache, tokens,
-                cfg: TransformerConfig):
+                cfg: TransformerConfig, mesh=None):
     """One decode step for every slot: tokens [B] (each slot's pending
     token) -> (cache with pos advanced, logits [B, V]). pos, RoPE and the
     attention masks are per row, so slots admitted at different times
     decode together."""
     pos, start = cache["pos"], cache["start"]
-    x = embed_tokens(params, tokens[:, None], cfg)  # [B, 1, d]
+    x = embed_tokens(params, tokens[:, None], cfg, mesh)  # [B, 1, d]
     positions = pos[:, None]  # [B, 1] per-row RoPE
     S = cache["k"].shape[2]
     kpos = torch.arange(S, device=x.device)[None, None, None, None, :]
@@ -125,11 +144,10 @@ def _decode_one(params: Params, cache: SlotCache, tokens,
         _write_rows(k_layer, k, pos)
         _write_rows(v_layer, v, pos)
         o = _gqa_attention(q, k_layer, v_layer, mask)
-        x = x + attn_out(o, lp, cfg)
+        x = x + _attn_sum(o, lp, cfg, mesh)
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-        down, _ = ffn_block(h, lp, cfg)
-        x = x + down
-    logits = _final_logits(params, x, cfg)[:, 0]  # [B, V]
+        x = x + _ffn(h, lp, cfg, mesh)
+    logits = _final_logits(params, x, cfg, mesh)[:, 0]  # [B, V]
     cache["pos"] = pos + 1
     return cache, logits
 
@@ -138,7 +156,7 @@ def _decode_one(params: Params, cache: SlotCache, tokens,
 def decode_slots(params: Params, cache: SlotCache, tokens, active, rng,
                  cfg: TransformerConfig, greedy: bool = True,
                  temperature: float = 1.0, eos_id: int = -1,
-                 steps: int = 1):
+                 steps: int = 1, mesh=None):
     """``steps`` decode substeps for every slot: tokens [B] (pending
     sampled-but-not-decoded tokens), active [B] bool; -> (cache,
     [B, steps+1]) where column 0 echoes the INPUT tokens and columns
@@ -154,7 +172,7 @@ def decode_slots(params: Params, cache: SlotCache, tokens, active, rng,
     done = tokens == eos_id
     out = [tokens]
     for _ in range(steps):
-        cache, logits = _decode_one(params, cache, tok, cfg)
+        cache, logits = _decode_one(params, cache, tok, cfg, mesh)
         nxt = _sample(logits, rng, greedy, temperature)
         nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
         done = done | (nxt == eos_id)
@@ -216,7 +234,9 @@ class InferenceEngine:
     slots (prefill), then advance every active slot (decode).
     ``serve_forever`` runs steps on a background thread; ``submit`` /
     ``submit_stream`` are thread-safe entry points. The engine runs on
-    ``device``, CUDA unless the caller asks for the CPU.
+    ``device``, CUDA unless the caller asks for the CPU; with a ``mesh`` on
+    the mesh's device, holding this rank's part of ``params`` (the full
+    params, plain or DTensors, the same on every rank; module docstring).
     """
 
     def __init__(self, params: Params, cfg: TransformerConfig, *,
@@ -227,11 +247,14 @@ class InferenceEngine:
                  min_bucket: int = 16, decode_chunk: int = 4,
                  fetch_every: int = 1, max_inflight: int = 6,
                  device=None):
+        self.mesh, self._ranks = None, 1
         if mesh is not None:
-            raise NotImplementedError(
-                "a meshed (tensor-parallel) engine is not ported yet: "
-                "ROADMAP A1b")
-        self.device = resolve_device(device)
+            check_supported(mesh, cfg)
+            self.mesh, params = _model_part(mesh, params, cfg)
+            self._ranks = mesh.size()
+            self.device = mesh_device(mesh)
+        else:
+            self.device = resolve_device(device)
         self.cfg = cfg
         self.slots = int(slots)
         self.max_prompt_len = int(max_prompt_len)
@@ -259,7 +282,8 @@ class InferenceEngine:
 
         self.params = _to_device(params, self.device)
         self.cache = init_slot_cache(cfg, self.slots, self._max_len,
-                                     self.device)
+                                     self.device,
+                                     self.params["layers"]["wk"].shape[2])
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
         self._rid = itertools.count()
         self._queue: "queue.Queue[_Request]" = queue.Queue()
@@ -377,7 +401,7 @@ class InferenceEngine:
         self.cache, first = prefill_slots(
             self.params, self.cache, self._tensor(toks), slots_dev,
             self._tensor(starts), self._rng, self.cfg, self.greedy,
-            self.temperature)
+            self.temperature, self.mesh)
         self._next_tok_dev[slots_dev] = first
         for slot, req in group:
             self._slot_req[slot] = req
@@ -401,13 +425,14 @@ class InferenceEngine:
                         self.params, self.cache, self._tensor(toks), slots,
                         torch.full((K,), bucket - 1, dtype=torch.int32,
                                    device=self.device),
-                        self._rng, self.cfg, self.greedy, self.temperature)
+                        self._rng, self.cfg, self.greedy, self.temperature,
+                        self.mesh)
                     self._next_tok_dev[slots] = first
             self.cache, toks = decode_slots(
                 self.params, self.cache, self._next_tok_dev,
                 torch.ones(self.slots, dtype=torch.bool, device=self.device),
                 self._rng, self.cfg, self.greedy, self.temperature,
-                self.eos_id, steps=self.decode_chunk)
+                self.eos_id, steps=self.decode_chunk, mesh=self.mesh)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         # reset bookkeeping: positions to zero, junk K/V is unreachable
@@ -522,7 +547,7 @@ class InferenceEngine:
         self.cache, toks = decode_slots(
             self.params, self.cache, self._next_tok_dev,
             self._tensor(active), self._rng, self.cfg, self.greedy,
-            self.temperature, self.eos_id, steps=width)
+            self.temperature, self.eos_id, steps=width, mesh=self.mesh)
         self._next_tok_dev = toks[:, -1].contiguous()
         self._inflight.append(self._queue_copy(toks, snapshot))
         self.stats["decode_steps"] += width
@@ -573,6 +598,12 @@ class InferenceEngine:
         dispatch loop."""
         if self._thread is not None:
             return self
+        if self._ranks > 1:
+            raise NotImplementedError(
+                "serve_forever on a mesh of more than one rank needs rank "
+                "0's admission decisions broadcast to every rank: ROADMAP "
+                "A1c; drive the engine by step() with the same submissions "
+                "on every rank")
         self._stop.clear()
 
         def loop():
@@ -693,6 +724,26 @@ class InferenceEngine:
         if req.error is not None:
             raise req.error
         return list(req.tokens)
+
+
+def _model_part(mesh, params: Params, cfg: TransformerConfig):
+    """The engine's mesh, the mesh's ``expert`` and ``tensor`` dims (the
+    others are replicas), and this rank's part of the full ``params``
+    (plain tensors, or DTensors taken whole) on it."""
+    from torch.distributed.tensor import DTensor
+
+    names = tuple(n for n in ("expert", "tensor")
+                  if n in (mesh.mesh_dim_names or ()))
+    sub = mesh[names[0] if len(names) == 1 else names]
+
+    def part(x, axes):
+        if isinstance(x, dict):
+            return {k: part(x[k], axes[k]) for k in x}
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
+        return local_shard(x, sub, logical_placements(sub, axes)).contiguous()
+
+    return sub, part(params, param_logical_axes(cfg))
 
 
 def _to_device(params: Params, device: torch.device) -> Params:

@@ -7,6 +7,12 @@ Keys and values are cached post-RoPE and pre-GQA-expansion; the repeat to
 query heads happens inside the attention contraction. Attention here is
 the dense masked contraction ``_gqa_attention``, as in the reference: the
 flash kernel is for the full-sequence ``forward``.
+
+The engine's meshed path (``models/engine.py``) runs ``_prefill_hidden``
+and ``_final_logits`` with a mesh of its ``tensor`` (and ``expert``) axis:
+each rank holds its heads, kv heads, d_ff columns and vocabulary rows; the
+attention and FFN outputs are summed over the ranks (``reduce_from``) and
+the logits gathered whole before sampling.
 """
 
 from __future__ import annotations
@@ -14,11 +20,13 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ray_tpu_torch.models.config import TransformerConfig
 from ray_tpu_torch.models.transformer import (Params, attn_out, embed_tokens,
                                               ffn_block, layer, lm_head,
                                               qkv_proj, rms_norm)
+from ray_tpu_torch.parallel.mesh import axis_groups, reduce_from
 
 KVCache = Dict[str, object]  # {"k": [L,B,S,KV,hd], "v": ..., "pos": int}
 
@@ -29,16 +37,23 @@ _MASKED = torch.finfo(torch.float32).min / 2
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
-               device) -> KVCache:
-    shape = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
+               device, kv_heads=None) -> KVCache:
+    """``kv_heads``: this rank's, on a tensor mesh (default all)."""
+    shape = (cfg.n_layers, batch, max_len, kv_heads or cfg.kv_heads,
+             cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "pos": 0}
 
 
-def _ffn(h, lp, cfg):
-    down, _ = ffn_block(h, lp, cfg)
+def _ffn(h, lp, cfg, mesh=None):
+    down, _ = ffn_block(h, lp, cfg, mesh)
     return down
+
+
+def _attn_sum(o, lp, cfg, mesh=None):
+    """The output projection of this rank's heads, summed over ``tensor``."""
+    return reduce_from(attn_out(o, lp, cfg), axis_groups(mesh, ("tensor",)))
 
 
 def _gqa_attention(q, k, v, mask):
@@ -66,14 +81,24 @@ def _cached_attention(q, k_cache, v_cache, valid_len, start):
     return _gqa_attention(q, k_cache, v_cache, mask)
 
 
-def _final_logits(params, x, cfg):
-    return lm_head(params, x, cfg)
+def _final_logits(params, x, cfg, mesh=None):
+    """Logits over the whole vocabulary: on a tensor mesh each rank's
+    vocabulary rows, gathered over the ranks (every rank samples the
+    same)."""
+    logits = lm_head(params, x, cfg)
+    for group in axis_groups(mesh, ("tensor",)):
+        every = [torch.empty_like(logits)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(every, logits.contiguous(), group=group)
+        logits = torch.cat(every, dim=-1)
+    return logits
 
 
 def _prefill_hidden(params: Params, tokens, cfg: TransformerConfig,
-                    max_len: int, start):
+                    max_len: int, start, mesh=None):
     """Prompt pass -> (final hidden states [B,P,d], cache filled at [0, P)).
-    Callers project only the positions they need to vocab space."""
+    Callers project only the positions they need to vocab space. ``mesh``:
+    the engine's tensor/expert mesh (this rank's weights in ``params``)."""
     B, P = tokens.shape
     if max_len < P:
         raise ValueError(f"max_len={max_len} < prompt length {P}")
@@ -82,7 +107,7 @@ def _prefill_hidden(params: Params, tokens, cfg: TransformerConfig,
         # silently contradict the forward() the params were trained with
         raise ValueError("generation requires a causal (decoder) config; "
                          "this config has causal=False")
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, mesh)
     dev = x.device
     start = start.to(dev)
     positions = torch.arange(P, device=dev)
@@ -90,15 +115,16 @@ def _prefill_hidden(params: Params, tokens, cfg: TransformerConfig,
     valid = positions[None, :] >= start[:, None]  # [B, S]
     prompt_mask = causal[None, :, None, None, :] & \
         valid[:, None, None, None, :]
-    cache = init_cache(cfg, B, max_len, dev)
+    cache = init_cache(cfg, B, max_len, dev,
+                       params["layers"]["wk"].shape[2])
     for i in range(cfg.n_layers):
         lp = layer(params, i)
         h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
         q, k, v = qkv_proj(h, lp, cfg, positions)
         o = _gqa_attention(q, k, v, prompt_mask)
-        x = x + attn_out(o, lp, cfg)
+        x = x + _attn_sum(o, lp, cfg, mesh)
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-        x = x + _ffn(h, lp, cfg)
+        x = x + _ffn(h, lp, cfg, mesh)
         cache["k"][i, :, :P] = k
         cache["v"][i, :, :P] = v
     cache["pos"] = P

@@ -14,11 +14,12 @@ The train step updates params and moments in place under ``no_grad``,
 standing in for the reference's donated state.
 
 With a ``mesh``, params and both moments are DTensors placed by
-``param_logical_axes`` (``state_shardings``: ZeRO-3 over ``fsdp``, moments
-matched to params by shape), the batch is split by ``batch_sharding``, the
-loss and its gradient are the global ones (``transformer.loss_fn``), the
-gradient norm sums each leaf's squares over the axes that shard it, and the
-optimizer updates each rank's shards.
+``param_logical_axes`` (``state_shardings``: ZeRO-3 over ``fsdp``, Megatron
+over ``tensor``, experts over ``expert``, the layer stacks' stages over
+``pipeline``; each moment placed as its param), the batch is split by
+``batch_sharding``, the loss and its gradient are the global ones
+(``transformer.loss_fn``), the gradient norm sums each leaf's squares over
+the axes that shard it, and the optimizer updates each rank's shards.
 """
 
 from __future__ import annotations
@@ -31,10 +32,9 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ray_tpu_torch.models.config import TransformerConfig
 from ray_tpu_torch.models.transformer import (init_params, loss_fn,
-                                              param_logical_axes,
-                                              param_shapes)
+                                              placed_logical_axes)
 from ray_tpu_torch.parallel.mesh import check_supported, mesh_device, psum
-from ray_tpu_torch.parallel.sharding import logical_placements
+from ray_tpu_torch.parallel.sharding import logical_placements, tree_shardings
 
 TrainState = Dict[str, Any]  # {"step", "params", "opt_state"}
 OptState = Dict[str, Any]    # {"count": int32 [], "mu": tree, "nu": tree}
@@ -250,16 +250,14 @@ def make_init_fn(cfg: TransformerConfig, tx: AdamW, device=None):
 def state_shardings(cfg: TransformerConfig, tx: AdamW, mesh, rules=None):
     """Placements for the whole TrainState, same structure.
 
-    Optimizer moments mirror param shapes, so their placements come from
-    the params' by shape (ZeRO: moments shard exactly like their params).
-    Anything unmatched (the step and the count) is replicated."""
+    The optimizer moments have the params' tree, so each moment takes its
+    own param's placements (ZeRO: moments shard exactly like their params;
+    the reference matches them by shape, which two params of one shape but
+    different axes, such as w_gate and w_down when d_ff == d_model, would
+    confuse). The step and the count are replicated."""
     del tx  # the moments' structure is the params'
-    by_shape = {}
-    shapes, axes = param_shapes(cfg), param_logical_axes(cfg)
-    for shape, ax in zip(tree_leaves(shapes), tree_leaves(axes)):
-        by_shape[shape] = logical_placements(mesh, ax, rules)
+    place = tree_shardings(mesh, placed_logical_axes(cfg, mesh), rules)
     repl = tuple(Replicate() for _ in mesh.mesh_dim_names)
-    place = tree_map(lambda shape: by_shape.get(shape, repl), shapes)
     return {"step": repl, "params": place,
             "opt_state": {"count": repl, "mu": place, "nu": place}}
 

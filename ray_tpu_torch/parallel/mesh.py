@@ -14,9 +14,15 @@ Axes (as in the reference):
     expert    — MoE expert parallelism
     pipeline  — pipeline stages
 
-The port runs ``data``, ``fsdp``, ``slice`` and ``sequence`` at any size;
-``tensor``, ``pipeline`` and ``expert`` above 1 are refused where a model
-runs on the mesh (``check_supported``, ROADMAP A1b).
+Every axis runs at any size that divides the model (``check_supported``).
+Ranks along ``tensor``, ``expert`` and ``pipeline`` (``MODEL_AXES``) hold the
+same tokens and split the model: Megatron's two operators, ``copy_to``
+(identity forward, all-reduce backward) and ``reduce_from`` (all-reduce
+forward, identity backward), join their partial results.
+
+``VirtualMesh`` names one axis whose ranks a single process runs in turn
+(one card): the same per-rank functions, with each collective a sum over
+the ranks' results or a copy from one to the next.
 """
 
 from __future__ import annotations
@@ -44,6 +50,9 @@ DCN_AXIS = "slice"
 BATCH_AXES: Tuple[str, ...] = ("slice", "data", "fsdp")
 # axes whose shards hold different tokens: the loss's global mean
 TOKEN_AXES: Tuple[str, ...] = BATCH_AXES + ("sequence",)
+# axes whose ranks hold the same tokens and split the model; a weight
+# replicated over them has its whole gradient on each of their ranks
+MODEL_AXES: Tuple[str, ...] = ("expert", "pipeline", "tensor")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,14 +159,41 @@ def single_device_mesh(device=None) -> DeviceMesh:
 
 # ---- queries ---------------------------------------------------------------
 
-def axis_size(mesh: DeviceMesh, name: str) -> int:
-    """Size of mesh axis ``name``; 1 when the mesh has no such axis."""
+@dataclasses.dataclass(frozen=True)
+class VirtualMesh:
+    """The ``size`` ranks of mesh axis ``axis`` run in turn by one process:
+    what one card runs of a multi-rank path. The model calls the real
+    driver's per-rank functions for each rank; a collective becomes a sum
+    over the ranks' results (``region_sum`` with no groups), an all-gather
+    a list, the pipeline's hand-off a copy. Used by ``transformer.forward``
+    and ``loss_fn`` (``tensor``, ``pipeline``) and ``moe.moe_ffn``
+    (``expert``, ``sequence``); every other axis has size 1."""
+
+    axis: str
+    size: int
+
+    def __post_init__(self):
+        if self.axis not in MESH_AXES or self.size < 1:
+            raise ValueError(f"VirtualMesh({self.axis!r}, {self.size}): "
+                             f"an axis of {MESH_AXES} and a size >= 1")
+
+
+def axis_size(mesh, name: str) -> int:
+    """Size of mesh axis ``name``; 1 when the mesh has no such axis (or
+    there is no mesh)."""
+    if mesh is None:
+        return 1
+    if isinstance(mesh, VirtualMesh):
+        return mesh.size if mesh.axis == name else 1
     names = mesh.mesh_dim_names or ()
     return mesh.size(names.index(name)) if name in names else 1
 
 
-def axis_index(mesh: DeviceMesh, name: str) -> int:
-    """This rank's coordinate along ``name`` (0 when the mesh lacks it)."""
+def axis_index(mesh, name: str) -> int:
+    """This rank's coordinate along ``name`` (0 when the mesh lacks it, for
+    no mesh and for a virtual one)."""
+    if not isinstance(mesh, DeviceMesh):
+        return 0
     names = mesh.mesh_dim_names or ()
     if name not in names:
         return 0
@@ -171,31 +207,50 @@ def mesh_device(mesh: DeviceMesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
-def present_axes(mesh: DeviceMesh, names: Sequence[str]) -> Tuple[str, ...]:
+def present_axes(mesh, names: Sequence[str]) -> Tuple[str, ...]:
     """``names`` that are dims of ``mesh`` with more than one rank."""
     return tuple(n for n in names if axis_size(mesh, n) > 1)
 
 
-def check_supported(mesh: DeviceMesh, cfg=None) -> None:
-    """Refuses what this slice does not run, so that nothing refused runs
-    silently unsharded: tensor, pipeline and expert above 1, and MoE with
-    sequence above 1 (ROADMAP A1b)."""
+def axis_groups(mesh, names: Sequence[str]) -> tuple:
+    """The process groups of ``names`` on a DeviceMesh, those above size 1,
+    in the order given; none for no mesh or a virtual one."""
     if not isinstance(mesh, DeviceMesh):
+        return ()
+    return tuple(mesh.get_group(a) for a in present_axes(mesh, names))
+
+
+def check_divides(cfg, sizes: dict) -> None:
+    """ValueError unless the model splits evenly over the mesh: heads, kv
+    heads, d_ff and vocab over ``tensor``, layers over ``pipeline``, experts
+    over ``expert``."""
+    t = sizes.get("tensor", 1)
+    for what, n in (("n_heads", cfg.n_heads), ("kv_heads", cfg.kv_heads),
+                    ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
+        if n % t:
+            raise ValueError(f"{what}={n} does not split over tensor={t}")
+    p = sizes.get("pipeline", 1)
+    if cfg.n_layers % p:
+        raise ValueError(f"n_layers={cfg.n_layers} does not split over "
+                         f"pipeline={p}")
+    e = sizes.get("expert", 1)
+    if cfg.moe_experts and cfg.moe_experts % e:
+        raise ValueError(f"moe_experts={cfg.moe_experts} does not split "
+                         f"over expert={e}")
+
+
+def check_supported(mesh, cfg=None) -> None:
+    """A mesh is a DeviceMesh (``make_mesh``) or a ``VirtualMesh``, and
+    ``cfg`` (when given) divides over it (``check_divides``)."""
+    if not isinstance(mesh, (DeviceMesh, VirtualMesh)):
         raise TypeError(f"mesh must be a torch DeviceMesh (make_mesh), got "
                         f"{type(mesh).__name__}")
-    for name in ("tensor", "pipeline", "expert"):
-        if axis_size(mesh, name) > 1:
-            raise NotImplementedError(
-                f"mesh axis {name!r} > 1 is not ported yet: ROADMAP A1b")
-    if cfg is not None and cfg.moe_experts and axis_size(mesh,
-                                                         "sequence") > 1:
-        raise NotImplementedError(
-            "MoE with mesh axis 'sequence' > 1 is not ported yet (capacity "
-            "is claimed along the whole row): ROADMAP A1b")
+    if cfg is not None:
+        check_divides(cfg, {a: axis_size(mesh, a) for a in MESH_AXES})
 
 
-def _all_reduce(x, group):
-    return funcol.wait_tensor(funcol.all_reduce(x, "sum", group))
+def _all_reduce(x, group, op: str = "sum"):
+    return funcol.wait_tensor(funcol.all_reduce(x, op, group))
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -216,8 +271,81 @@ def psum(x, mesh, axes, differentiable: bool = False):
     """Sum of ``x`` over the ranks of mesh ``axes`` (one functional
     all-reduce per axis above size 1). ``differentiable``: the backward sums
     the gradients over the same ranks; else ``x`` is detached."""
-    for a in present_axes(mesh, axes):
-        group = mesh.get_group(a)
+    for group in axis_groups(mesh, axes):
         x = (_AllReduceSum.apply(x, group) if differentiable
              else _all_reduce(x.detach(), group))
+    return x
+
+
+# ---- Megatron's operators over model axes -----------------------------------
+
+class _Copy(torch.autograd.Function):
+    """Megatron's "f": the input of a region split over model ranks. The
+    forward is the identity; the backward all-reduces the gradient, whose
+    ranks each hold the part from their shard."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        for group in ctx.groups:
+            dy = _all_reduce(dy.contiguous(), group)
+        return dy, None
+
+
+class _Reduce(torch.autograd.Function):
+    """Megatron's "g": the output of such a region. The forward all-reduces
+    the ranks' partial sums; the backward is the identity, since every rank
+    reads the same loss (``psum``'s backward would count it once a rank)."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        for group in groups:
+            x = _all_reduce(x.contiguous(), group)
+        return x
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+def copy_to(x, groups):
+    """``_Copy`` over ``groups`` (``axis_groups``); ``x`` for none."""
+    return _Copy.apply(x, tuple(groups)) if groups else x
+
+
+def rank_inputs(x, groups, n: int = 1) -> list:
+    """The input of a region split over model ranks, once for each of the
+    ``n`` ranks this process runs: ``copy_to`` on a real mesh (n = 1); for
+    virtual ranks an alias each, so that a rank's gradient adds up on its
+    own before the ranks' are summed, as on a real mesh."""
+    if n == 1:
+        return [copy_to(x, groups)]
+    return [_Copy.apply(x, ()) for _ in range(n)]
+
+
+def reduce_from(x, groups):
+    """``_Reduce`` over ``groups``; ``x`` for none."""
+    return _Reduce.apply(x, tuple(groups)) if groups else x
+
+
+def region_sum(parts, groups):
+    """The partial results of a region split over model ranks -> their sum:
+    ``parts`` holds one result for each rank this process runs (one on a
+    real mesh, every rank's for a virtual one), added in rank order, then
+    ``reduce_from`` over ``groups``."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return reduce_from(out, groups)
+
+
+def reduce_max(x, groups):
+    """Elementwise max over the ranks of ``groups`` (no gradient)."""
+    x = x.detach()
+    for group in groups:
+        x = _all_reduce(x.contiguous(), group, "max")
     return x

@@ -242,7 +242,7 @@ class _RingAttention(torch.autograd.Function):
 
 def ring_attention(q, k, v, mesh, *, axis_name: str = "sequence",
                    causal: bool = True, scale: Optional[float] = None,
-                   batch_axes=None, head_axis: str = "tensor"):
+                   batch_axes=None):
     """Self-attention with the sequence dim sharded over ``axis_name``.
 
     q, k, v: this rank's shards [B_local, T/P, H, D] (batch rows over
@@ -251,18 +251,15 @@ def ring_attention(q, k, v, mesh, *, axis_name: str = "sequence",
     flash call with no communication when the axis has size 1, so callers
     can use it unconditionally. ``batch_axes`` defaults to every data-like
     axis present in the mesh (slice/data/fsdp); the local shards already
-    carry that split, so it only names it. Heads split over ``head_axis``
-    (tensor parallelism) are refused (ROADMAP A1b)."""
+    carry that split, so it only names it. Heads split over ``tensor``
+    arrive as this rank's heads (H/t): the ring runs on them, its P2P on
+    the ``sequence`` group only."""
     names = mesh.mesh_dim_names or ()
     if batch_axes is None:
         batch_axes = tuple(a for a in BATCH_AXES if a in names)
     missing = [a for a in (*batch_axes, axis_name) if a not in names]
     if missing:
         raise ValueError(f"mesh has no axes {missing} (axes: {names})")
-    if axis_size(mesh, head_axis) > 1:
-        raise NotImplementedError(
-            f"ring attention with heads split over {head_axis!r} is not "
-            f"ported yet: ROADMAP A1b")
     b, t, h, d = q.shape
     scale = scale if scale is not None else d ** -0.5
     group = (mesh.get_group(axis_name) if axis_size(mesh, axis_name) > 1

@@ -5,7 +5,9 @@ axes. The reference turns the result into a ``PartitionSpec`` and lets XLA
 insert the collectives; here it becomes DTensor placements over a
 ``DeviceMesh`` (one placement per mesh dim: ``Shard(d)`` where the spec
 names that mesh axis for tensor dim ``d``, ``Replicate()`` elsewhere), and
-the model code gathers and reduces explicitly (``gather``).
+the model code gathers and reduces explicitly (``gather``): over the
+data-like axes a weight is gathered whole (ZeRO-3 over ``fsdp``), over
+``tensor``, ``expert`` and ``pipeline`` each rank keeps its shard.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import Any, Optional, Sequence, Tuple
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from ray_tpu_torch.parallel.mesh import MODEL_AXES, TOKEN_AXES
 
 # logical axis -> mesh axis (or tuple of mesh axes, or None = replicate).
 # Batch shards over every data-like axis (incl. the "slice" axis of hybrid
@@ -154,14 +158,42 @@ def with_logical_constraint(x, logical: Sequence[Optional[str]], rules=None,
     return x.redistribute(mesh, logical_placements(mesh, logical, rules))
 
 
-def gather(x):
-    """A DTensor's full value as a plain tensor, for use in a local
-    computation; the gradient that flows back into it is taken as a
-    partial sum on every rank (``Partial``), so the backward sums it over
-    the replica dims and reduce-scatters it over the sharded ones. A plain
+def gather(x, whole: Sequence[str] = (),
+           grad_sum: Sequence[str] = TOKEN_AXES):
+    """A DTensor's value for a local computation, as a plain tensor: gathered
+    over every mesh dim that shards it except the model axes (tensor,
+    expert, pipeline), whose shards each rank keeps, unless named in
+    ``whole``. The gradient that flows back is summed over the ranks of
+    ``grad_sum`` (by default the token axes, whose ranks see different
+    tokens) and reduce-scattered where the weight is sharded over them;
+    over every other dim each rank's gradient is already its shard's whole
+    gradient, and summing it there would count it once a rank. A plain
     tensor passes through."""
     if not isinstance(x, DTensor):
         return x
-    n = x.device_mesh.ndim
-    return x.redistribute(x.device_mesh, [Replicate()] * n).to_local(
-        grad_placements=[Partial()] * n)
+    names = x.device_mesh.mesh_dim_names
+    target = [p if n in MODEL_AXES and n not in whole else Replicate()
+              for n, p in zip(names, x.placements)]
+    grads = [Partial() if n in grad_sum else p
+             for n, p in zip(names, target)]
+    return x.redistribute(x.device_mesh, target).to_local(
+        grad_placements=grads)
+
+
+def layer_shard(w, i: int, local=None):
+    """Layer ``i`` of a stacked ``[L, ...]`` weight: a view, or for a DTensor
+    the DTensor of this rank's slice of its shard (nothing is sent).
+    ``local`` is ``w.to_local()``, taken once for all layers: the layers'
+    gradients then add up in that plain tensor, not as DTensors. A stack
+    split over pipeline stages (``Shard(0)``) holds this stage's layers in
+    ``local`` and ``i`` counts within them; the layer's DTensor is
+    replicated over that dim (its gather sends nothing there)."""
+    if not isinstance(w, DTensor):
+        return w[i] if local is None else local[i]
+    placements = [(Replicate() if p.dim == 0 else Shard(p.dim - 1))
+                  if isinstance(p, Shard) else p for p in w.placements]
+    local = w.to_local() if local is None else local
+    shape = w.shape[1:]
+    return DTensor.from_local(local[i], w.device_mesh, placements,
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())

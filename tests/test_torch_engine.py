@@ -193,11 +193,6 @@ def test_oversized_prompt_rejected(model):
         eng.submit(list(range(1, 20)))
 
 
-def test_mesh_not_ported(model):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        _engine(model, slots=2, mesh=object())
-
-
 def test_long_generation_does_not_stall_batch(model):
     eng = _engine(model, slots=2, max_prompt_len=16, max_new_tokens=32)
     long_req = eng.submit([1, 2, 3], max_new_tokens=32)

@@ -1,10 +1,11 @@
 """The port's meshed train step, eval step and forward against the JAX
-package's unmeshed ones on the CPU, ``dryrun_multichip(8, device="cpu")``,
-and the refusals of what this slice does not run.
+package's unmeshed ones on the CPU, and ``dryrun_multichip(8, device="cpu")``.
 
 One gloo world of 8 ranks (``tests/torch_parallel_ranks.train_rank``) runs
-every case: two AdamW steps (lr 1e-3, ROADMAP C2) on each dense mesh of
-the dry run and MoE on fsdp=8, from the JAX package's initial params
+every case: two AdamW steps (lr 1e-3, ROADMAP C2) on four of the dry
+run's dense meshes, those that split only tokens (the model axes have
+their own modules: test_torch_tensor_parallel.py, test_torch_pipeline.py,
+test_torch_moe_parallel.py), and MoE on fsdp=8, from the JAX package's initial params
 (placed as DTensors by ``interop.shard_state``) and one batch [8, 32]. The
 JAX side runs the same steps unmeshed before the world starts; as the dry
 run's own gate holds meshes against each other, each mesh is held here
@@ -29,11 +30,10 @@ from ray_tpu.models import training as jtrain
 from ray_tpu.models import transformer as jtr
 from ray_tpu_torch.entry import dryrun_multichip
 from ray_tpu_torch.parallel.world import run_world
+from torch_parallel_checks import (LR, STEPS, TOL, batches, check_metric,
+                                   check_steps, jax_steps, np_tree)
 from torch_parallel_ranks import one_world_at_a_time, train_rank
 from torch_port_util import one_torch_thread  # noqa: F401 (fixture)
-
-TOL, LR, STEPS = 2e-4, 1e-3, 2
-VANISHING = 1e-7  # ROADMAP C2: a starting gradient this small
 DENSE_CFG = {}
 MOE_CFG = dict(moe_experts=4, tie_embeddings=True)
 # name -> (mesh, remat settings of the port's config)
@@ -45,35 +45,6 @@ DENSE_MESHES = {
     "seq4_fsdp2": (dict(sequence=4, fsdp=2),
                    dict(remat=True, remat_policy="nothing")),
 }
-REFUSED = ("tensor", "pipeline", "expert", "moe_sequence", "engine")
-
-
-def _np_tree(tree):
-    return jax.tree.map(np.asarray, tree)
-
-
-def _batches():
-    rng = np.random.RandomState(7)
-    toks = rng.randint(0, 256, size=(8, 33)).astype(np.int32)
-    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
-    mask = (rng.rand(8, 32) < 0.7).astype(np.float32)
-    return batch, {**batch, "mask": mask}
-
-
-def _jax_steps(cfg, state, batch):
-    """STEPS unmeshed JAX steps -> metrics, params and the starting grads."""
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    grads = _np_tree(jax.grad(lambda p: jtr.loss_fn(p, jb, cfg)[0])(
-        state["params"]))
-    tx = jtrain.make_optimizer(LR)
-    state = {**state, "opt_state": tx.init(state["params"])}
-    step = jtrain.make_train_step(cfg, tx)
-    metrics = []
-    for _ in range(STEPS):
-        state, m = step(state, jb)
-        metrics.append({k: float(v) for k, v in m.items()})
-    return {"metrics": metrics, "params": _np_tree(state["params"]),
-            "grads": grads}
 
 
 @pytest.fixture(scope="module")
@@ -82,15 +53,15 @@ def runs():
     error). The JAX side runs first, then the world, then the dry run's
     world, one test module's worlds at a time on the host
     (``one_world_at_a_time``)."""
-    batch, eval_batch = _batches()
+    batch, eval_batch = batches()
     cj, cm = jcfg.tiny_config(**DENSE_CFG), jcfg.tiny_config(**MOE_CFG)
     tx = jtrain.make_optimizer(LR)
     dense0 = jtrain.init_train_state(jax.random.key(0), cj, tx)
     moe0 = jtrain.init_train_state(jax.random.key(0), cm, tx)
     spec = {"dense_cfg": DENSE_CFG, "moe_cfg": MOE_CFG,
             "dense_meshes": [(n, m, r) for n, (m, r) in DENSE_MESHES.items()],
-            "dense_params": _np_tree(dense0["params"]),
-            "moe_params": _np_tree(moe0["params"]), "batch": batch,
+            "dense_params": np_tree(dense0["params"]),
+            "moe_params": np_tree(moe0["params"]), "batch": batch,
             "eval_batch": eval_batch, "steps": STEPS, "lr": LR}
 
     jeval = {k: jnp.asarray(v) for k, v in eval_batch.items()}
@@ -99,8 +70,8 @@ def runs():
                 dense0["params"], jeval).items()},
             "logits": np.asarray(jtr.forward(dense0["params"],
                                              jeval["inputs"], cj))}
-    refs.update(dense=_jax_steps(cj, dense0, batch),
-                moe=_jax_steps(cm, moe0, batch))
+    refs.update(dense=jax_steps(cj, spec["dense_params"], batch),
+                moe=jax_steps(cm, spec["moe_params"], batch))
     with one_world_at_a_time():
         out = run_world(train_rank, 8, (spec,), device="cpu", timeout=300)
         try:
@@ -110,37 +81,10 @@ def runs():
     return out[0], refs, dry
 
 
-def _check_params(got, want):
-    """Every param within TOL, but where the starting gradient vanishes
-    (ROADMAP C2) within the 2 x lr two Adam steps can part them by."""
-    assert jax.tree.structure(got["params"]) == jax.tree.structure(
-        want["params"])
-    for a, b, g in zip(jax.tree.leaves(want["params"]),
-                       jax.tree.leaves(got["params"]),
-                       jax.tree.leaves(want["grads"])):
-        d = np.abs(np.asarray(a) - b)
-        vanishing = np.abs(g) < VANISHING
-        assert d[~vanishing].max(initial=0) <= TOL
-        assert d[vanishing].max(initial=0) <= STEPS * LR
-
-
-def _check_metric(k, got, want):
-    """Within TOL; perplexity, exp(loss), relatively."""
-    scale = abs(want) if k == "perplexity" else 1.0
-    assert abs(got - want) <= TOL * scale, (k, got, want)
-
-
-def _check_steps(got, want, keys):
-    for g, w in zip(got["metrics"], want["metrics"]):
-        for k in keys:
-            _check_metric(k, g[k], w[k])
-    _check_params(got, want)
-
-
 @pytest.mark.parametrize("name", list(DENSE_MESHES))
 def test_meshed_train_step_matches_jax(runs, name):
     out, refs, _ = runs
-    _check_steps(out["train"][name], refs["dense"],
+    check_steps(out["train"][name], refs["dense"],
                  ("loss", "grad_norm", "perplexity"))
 
 
@@ -148,7 +92,7 @@ def test_meshed_moe_train_step_matches_jax(runs):
     """MoE on fsdp=8: the Switch aux loss from global frac and mean_p (each
     rank routes its own rows), its weight in the gradient, a tied head."""
     out, refs, _ = runs
-    _check_steps(out["train"]["moe_fsdp8"], refs["moe"],
+    check_steps(out["train"]["moe_fsdp8"], refs["moe"],
                  ("loss", "grad_norm", "moe_aux", "total_loss"))
 
 
@@ -158,7 +102,7 @@ def test_meshed_eval_step_matches_jax(runs):
     out, refs, _ = runs
     assert set(out["eval"]) == set(refs["eval"])
     for k, v in refs["eval"].items():
-        _check_metric(k, out["eval"][k], v)
+        check_metric(k, out["eval"][k], v)
 
 
 def test_meshed_forward_returns_sharded_logits(runs):
@@ -170,20 +114,11 @@ def test_meshed_forward_returns_sharded_logits(runs):
 
 
 def test_dryrun_multichip_cpu(runs):
-    """dryrun_multichip(8, device="cpu"): four dense meshes and two MoE
-    meshes in a gloo world of 8, each group's losses within 2e-3."""
+    """dryrun_multichip(8, device="cpu"): the reference's five dense and two
+    MoE meshes plus sequence=4 x fsdp=2 (dense) and data=2 x fsdp=4 (MoE)
+    in a gloo world of 8, each group's losses within 2e-3."""
     _, _, dry = runs
     if isinstance(dry, Exception):
         raise dry
-    assert len(dry["dense"]) == 4 and len(dry["moe"]) == 2
+    assert len(dry["dense"]) == 6 and len(dry["moe"]) == 3
     assert dry["dense_spread"] < 2e-3 and dry["moe_spread"] < 2e-3
-
-
-@pytest.mark.parametrize("what", REFUSED)
-def test_refusals(runs, what):
-    """tensor, pipeline and expert above 1, MoE with sequence above 1 and a
-    meshed engine each raise NotImplementedError naming ROADMAP A1b."""
-    out, _, _ = runs
-    got = out["refused"][what]
-    assert got and all(r.startswith("NotImplementedError") and "A1b" in r
-                       for r in got), got

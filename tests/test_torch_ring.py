@@ -133,12 +133,6 @@ def test_virtual_ring_equals_gloo_run(runs, name):
                                           r[name][key])
 
 
-def test_ring_refuses_split_heads(runs):
-    results, _ = runs
-    assert all(r["refuse_heads"].startswith("NotImplementedError")
-               and "A1b" in r["refuse_heads"] for r in results)
-
-
 @pytest.mark.parametrize("causal", [True, False])
 def test_virtual_ring_matches_whole_sequence(causal):
     """In one process: the ring's blocks and LSE merge over 4 chunks give
