@@ -27,6 +27,15 @@ phase:
             whole sequence (ring_check), launches counted, both timed
   entry     ray_tpu_torch.entry.entry(): the GPT-2-small forward at
             [4, 512], finite logits of the right shape
+  runtime   the port's runtime (ray_tpu_torch.init with the GPU count left
+            to detection, which must equal nvidia-smi -L's): a 1 GiB bf16
+            CUDA tensor put and read by a num_gpus=1 task in another
+            process (checksums equal); a num_gpus=1 actor that sees GPU 0
+            runs the forward at [4, 2048] through B1 (16 launches counted
+            in the actor) and returns the last position's logits as a CUDA
+            tensor, held against the driver's own forward within 1e-3; the
+            actor returns a 256 MiB CUDA tensor (bitwise equal); GB/s of
+            each transfer; no worker process left after shutdown()
   forward   forward(params, tokens[4, 2048]) in bf16 through the flash
             kernel (launches counted), against plain attention and the
             fp32 forward
@@ -212,6 +221,15 @@ _PP_TRAIN_RATIO = _TRAIN_BF16_RATIO
 # B1 / B2 / B3 launches, each at [B*H/t = 32, 2048, 64]: a forward runs 16
 # layers x 4 ranks (or x 4 microbatches: the port skips the bubble ticks),
 # a remat train step that forward, its recompute, and one B2 and B3 each
+# runtime: the object store's arena, the tensors moved (bf16), and the
+# actor's logits against the driver's, as a relative distance (the same
+# kernels on the same inputs: equal unless a library picks another
+# algorithm in the worker)
+_RUNTIME_STORE_BYTES = 4 << 30
+_RUNTIME_PUT_BYTES = 1 << 30
+_RUNTIME_RETURN_BYTES = 256 << 20
+_RUNTIME_REL_TOL = 1e-3
+_WORKER_PROBE = "ray_tpu_torch[.]core[.]worker_main"
 _AXIS_LAUNCHES = {
     "forward": {"flash_fwd": 64, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
     "train": {"flash_fwd": 128, "flash_bwd_dq": 64, "flash_bwd_dkv": 64}}
@@ -1138,6 +1156,205 @@ def phase_entry():
         raise AssertionError("entry()'s forward is wrong")
 
 
+def _runtime_tensor(nbytes: int, seed: int):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(nbytes // 2, generator=g, device="cuda",
+                       dtype=torch.bfloat16)
+
+
+def _row_sums(t):
+    """Exact integer sums of the bits of 64 slices of a bf16 tensor, in
+    order: the checksum both processes compute."""
+    import torch
+
+    return t.view(torch.int16).reshape(64, -1).sum(
+        dim=1, dtype=torch.int64).tolist()
+
+
+def runtime_receive(refs):
+    """The runtime phase's num_gpus=1 task: get the driver's tensor (a
+    ref inside a list, so the get is timed here, after the worker's CUDA
+    context is made) and report what came."""
+    import torch
+
+    import ray_tpu_torch
+
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t = ray_tpu_torch.get(refs[0], timeout=300)
+    torch.cuda.synchronize()
+    get_s = time.perf_counter() - t0
+    return {"device": t.device.type, "dtype": str(t.dtype),
+            "gpu_ids": ray_tpu_torch.get_gpu_ids(),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "row_sums": _row_sums(t), "get_s": get_s}
+
+
+class RuntimeActor:
+    """The runtime phase's num_gpus=1 actor. Defined here and referenced
+    as ``chip_smoke.RuntimeActor``, so it pickles by reference."""
+
+    def lease(self):
+        import torch
+
+        import ray_tpu_torch
+
+        return {"gpu_ids": ray_tpu_torch.get_gpu_ids(),
+                "cuda_visible_devices":
+                    os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "device_count": torch.cuda.device_count(),
+                "pid": os.getpid()}
+
+    def forward(self, seed: int):
+        """llama3-1b's bf16 forward at [4, 2048] from the phase's seed,
+        B1's launches counted around it; the last position's logits (fp32
+        from the forward, as the reference's) in bf16."""
+        import torch
+
+        from ray_tpu_torch.models import config as C
+        from ray_tpu_torch.models import transformer as T
+        fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = C.get_config("llama3-1b", param_dtype=torch.bfloat16)
+        params = T.init_params(torch.Generator(
+            device="cuda").manual_seed(seed), cfg, device="cuda")
+        tokens = forward_tokens(cfg, seed)
+        _zero_counts(fa)
+        logits = T.forward(params, tokens, cfg)
+        torch.cuda.synchronize()
+        launches = _counts(fa)
+        return {"launches": launches,
+                "logits": logits[:, -1].to(torch.bfloat16)}
+
+    def tensor(self, nbytes: int, seed: int):
+        return _runtime_tensor(nbytes, seed)
+
+
+def _workers_left() -> list:
+    out = subprocess.run(["pgrep", "-f", _WORKER_PROBE],
+                         capture_output=True, text=True)
+    return out.stdout.split()
+
+
+def phase_runtime(T, cfg, params, seed: int):
+    """The port's runtime on the card (the module's docstring, runtime).
+    Returns the actor's B1 launches."""
+    import torch
+
+    import chip_smoke as CS  # by reference, not as __main__
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import serialization
+
+    smi_l = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                           text=True, timeout=60, check=True).stdout
+    cards = sum(1 for line in smi_l.splitlines() if line.startswith("GPU "))
+    gb = 1e9
+    row = {"phase": "runtime", "card": _nvidia_smi()}
+    rt.init(num_cpus=4, object_store_memory=_RUNTIME_STORE_BYTES,
+            log_to_driver=False)
+    try:
+        row["gpus_detected"] = rt.cluster_resources().get("GPU", 0)
+        row["nvidia_smi_cards"] = cards
+        # a 1 GiB bf16 CUDA tensor: put, then a num_gpus=1 task gets it
+        x = _runtime_tensor(_RUNTIME_PUT_BYTES, seed + 200)
+        want = _row_sums(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = serialization.serialize(x).frames  # put's first half
+        serialize_s = time.perf_counter() - t0
+        del frames
+        t0 = time.perf_counter()
+        ref = rt.put(x)
+        put_s = time.perf_counter() - t0
+        task = rt.remote(num_gpus=1, num_cpus=0)(CS.runtime_receive)
+        got = rt.get(task.remote([ref]), timeout=600)
+        del ref, x
+        row["put"] = {"bytes": _RUNTIME_PUT_BYTES, "s": put_s,
+                      "GB_per_s": _RUNTIME_PUT_BYTES / put_s / gb,
+                      "serialize_s": serialize_s}
+        row["task_get"] = {
+            "bytes": _RUNTIME_PUT_BYTES, "s": got["get_s"],
+            "GB_per_s": _RUNTIME_PUT_BYTES / got["get_s"] / gb,
+            "device": got["device"], "dtype": got["dtype"],
+            "gpu_ids": got["gpu_ids"],
+            "cuda_visible_devices": got["cuda_visible_devices"],
+            "checksum_equal": got["row_sums"] == want}
+
+        # the num_gpus=1 actor: its lease, the forward through B1, and
+        # the last position's logits back as a CUDA tensor
+        actor = rt.remote(num_gpus=1)(CS.RuntimeActor).remote()
+        row["actor_lease"] = rt.get(actor.lease.remote(), timeout=600)
+        out = rt.get(actor.forward.remote(seed), timeout=600)
+        logits = out["logits"]
+        tokens = forward_tokens(cfg, seed)
+        ref_logits = T.forward(params, tokens, cfg)[:, -1].to(
+            torch.bfloat16)
+        torch.cuda.synchronize()
+        row["actor_forward"] = {
+            "tokens": [4, 2048], "launches": out["launches"],
+            "logits_shape": list(logits.shape), "dtype": str(logits.dtype),
+            "device": logits.device.type,
+            "rel_to_driver": _rel(logits.float(), ref_logits.float()),
+            "rel_tol": _RUNTIME_REL_TOL,
+            "bitwise_equal": bool(torch.equal(logits, ref_logits))}
+        del logits, ref_logits, out
+
+        # a 256 MiB CUDA tensor returned by the actor
+        r = actor.tensor.remote(_RUNTIME_RETURN_BYTES, seed + 300)
+        rt.wait([r], timeout=600)
+        t0 = time.perf_counter()
+        y = rt.get(r, timeout=600)
+        torch.cuda.synchronize()
+        ret_s = time.perf_counter() - t0
+        row["actor_return"] = {
+            "bytes": _RUNTIME_RETURN_BYTES, "s": ret_s,
+            "GB_per_s": _RUNTIME_RETURN_BYTES / ret_s / gb,
+            "device": y.device.type, "dtype": str(y.dtype),
+            "bitwise_equal": bool(torch.equal(
+                y, _runtime_tensor(_RUNTIME_RETURN_BYTES, seed + 300)))}
+        del y, r
+        rt.kill(actor)
+    finally:
+        rt.shutdown()
+    for _ in range(100):
+        left = _workers_left()
+        if not left:
+            break
+        time.sleep(0.1)
+    row["workers_left"] = left
+    lease, fwd = row["actor_lease"], row["actor_forward"]
+    tg, ar = row["task_get"], row["actor_return"]
+    checks = {
+        "gpus_detected": row["gpus_detected"] == cards == 1,
+        "task_tensor": (tg["device"], tg["dtype"], tg["gpu_ids"],
+                        tg["cuda_visible_devices"], tg["checksum_equal"])
+        == ("cuda", "torch.bfloat16", [0], "0", True),
+        "actor_lease": (lease["gpu_ids"], lease["cuda_visible_devices"],
+                        lease["device_count"]) == ([0], "0", 1),
+        "actor_launches": fwd["launches"] == {
+            "flash_fwd": cfg.n_layers, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0},
+        "actor_logits": (fwd["logits_shape"] == [4, cfg.vocab_size]
+                         and fwd["dtype"] == "torch.bfloat16"
+                         and fwd["device"] == "cuda"
+                         and fwd["rel_to_driver"] <= _RUNTIME_REL_TOL),
+        "actor_return": (ar["device"], ar["dtype"], ar["bitwise_equal"])
+        == ("cuda", "torch.bfloat16", True),
+        "no_worker_left": not left}
+    row["checks"] = checks
+    row["ok"] = all(checks.values())
+    _emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"runtime phase failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return fwd["launches"]["flash_fwd"]
+
+
 def _grads(T, TR, params, batch, cfg, mesh=None):
     """(loss, grads) of one step's loss_fn, leaves in tree order; on a
     DeviceMesh (DTensor params) the grads' local shards."""
@@ -1859,6 +2076,9 @@ def run(seed: int) -> int:
     p32 = {"embed": params["embed"].float(),
            "final_norm": params["final_norm"].float(),
            "layers": {k: w.float() for k, w in params["layers"].items()}}
+    runtime_launches = attempt("runtime", phase_runtime, T, cfg, params,
+                               seed)
+    torch.cuda.empty_cache()
     launches = attempt("forward", phase_forward, fa, T, cfg, params, p32,
                        seed)
     attempt("engine", phase_engine_fp32, E, G, cfg, p32, seed)
@@ -1929,6 +2149,7 @@ def run(seed: int) -> int:
         "bound_share": main["bound_ms"] / main["ms"],
         "launches_by_path": {
             "forward": launches, "train_step": train_launches["flash_fwd"],
+            "runtime_actor_forward": runtime_launches,
             "moe_forward": moe_launches,
             "moe_train_step": moe_train_launches["flash_fwd"],
             "train_dots_step": dots_launches["flash_fwd"],

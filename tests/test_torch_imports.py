@@ -23,12 +23,15 @@ def _port_modules():
 
 
 def test_port_imports_no_jax_and_no_reference_package():
-    """Importing every module of the port, and the card scripts
-    (chip_smoke, kernel_mutants), loads no JAX, no ml_dtypes,
-    nothing of ray_tpu, and builds no kernel."""
+    """Importing every module of the port, the runtime's included, and the
+    card scripts (chip_smoke, kernel_mutants), loads no JAX, no ml_dtypes,
+    nothing of ray_tpu, and builds no kernel and no native library."""
     mods = _port_modules() + ["chip_smoke", "kernel_mutants"]
     assert {"ray_tpu_torch.ops.flash_attention", "ray_tpu_torch.ops._build",
-            "ray_tpu_torch.models.training"} <= set(mods)
+            "ray_tpu_torch.models.training", "ray_tpu_torch.core.head",
+            "ray_tpu_torch.core.api", "ray_tpu_torch.core.serialization",
+            "ray_tpu_torch.core.worker_main",
+            "ray_tpu_torch.native.build"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -38,14 +41,36 @@ def test_port_imports_no_jax_and_no_reference_package():
         " or m == 'ml_dtypes' or m == 'ray_tpu' or m.startswith('ray_tpu.')"
         " or m == 'bench_serve']\n"
         "print(json.dumps({'bad': bad, 'built': sorted(_build._libs),"
-        " 'sources': _build.sources()}))\n")
+        " 'sources': _build.sources(),"
+        " 'native': [ln for ln in open('/proc/self/maps')"
+        " if 'ray_tpu_torch/native' in ln]}))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": str(_ROOT)})
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {"bad": [], "built": [],
-                   "sources": ["flash_bwd", "flash_bwd_dkv", "flash_fwd"]}
+                   "sources": ["flash_bwd", "flash_bwd_dkv", "flash_fwd"],
+                   "native": []}
+
+
+def test_runtime_entry_points_load_no_torch():
+    """A worker process (python -m ray_tpu_torch.core.worker_main) and a
+    driver that imports the runtime API load no torch: the package's names
+    load on first access."""
+    code = (
+        "import json, sys\n"
+        "import ray_tpu_torch\n"
+        "import ray_tpu_torch.core.worker_main, ray_tpu_torch.core.api\n"
+        "from ray_tpu_torch import init, remote, get, put, get_gpu_ids\n"
+        "from ray_tpu_torch import ObjectRef, RayTaskError\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m == 'torch'"
+        " or m.startswith('torch.') or m == 'jax')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(_ROOT)})
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 @pytest.fixture
