@@ -43,6 +43,23 @@ phase:
             port's own generate()
   serving   InferenceEngine in bf16 at bench_serve.py's settings under
             serve_forever: 8 client threads, 32 requests
+  serve     the port's Serve (ray_tpu_torch.serve) on its runtime: (1) the
+            fp32 llama3-1b continuous replica of
+            build_continuous_llm_deployment (num_gpus=1, params from the
+            seed), phase engine's prompts, token for token against the
+            in-process engine through handle.remote and a stream; (2)
+            phase serving's bf16 cell through a handle from 8 driver
+            threads (streamed: tokens/s, latency, TTFT, the replica's
+            engine_stats and decode-chunk host/device ms, the ratio of its
+            tokens/s to phase serving's in this run), and one request
+            through the HTTP proxy equal to the handle's answer; (3) a
+            num_gpus=1 deployment bound with the driver's bf16 params (CUDA
+            tensors, sent by reference leaf by leaf) runs the forward at
+            [4, 2048] through B1 (16 launches counted in the replica),
+            logits bitwise equal to the driver's; deploy-to-ready seconds
+            split into digest, put, the replica's start and fetch, and
+            init; (4) no worker process left after serve.shutdown() and
+            shutdown()
   moe_layer one Mixture-of-Experts layer of llama3-1b with 8 experts, top 2
             (capacity factor 1.25) at [4, 2048] bf16: moe_ffn (dispatch by
             index) against moe_ffn_dense (the reference's one-hot einsums):
@@ -230,6 +247,12 @@ _RUNTIME_PUT_BYTES = 1 << 30
 _RUNTIME_RETURN_BYTES = 256 << 20
 _RUNTIME_REL_TOL = 1e-3
 _WORKER_PROBE = "ray_tpu_torch[.]core[.]worker_main"
+# serve: phase engine's prompt lengths and new tokens (its fp32 check), and
+# the 8 warm-up requests the bf16 replica serves before the timed ones
+# (phase serving warms its engine up in process; a replica cannot be)
+_ENGINE_PROMPT_LENS = (5, 17, 40, 64)
+_ENGINE_MAX_NEW = 32
+_SERVE_WARMUP_LENS = (8, 16, 24, 32, 40, 48, 56, 64)
 _AXIS_LAUNCHES = {
     "forward": {"flash_fwd": 64, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
     "train": {"flash_fwd": 128, "flash_bwd_dq": 64, "flash_bwd_dkv": 64}}
@@ -757,28 +780,47 @@ def phase_forward(fa, T, cfg, params, p32, seed: int):
     return launches
 
 
-def phase_engine_fp32(E, G, cfg, p32, seed: int):
-    """The fp32 engine token for token against the port's generate()."""
+def fp32_config(cfg):
     import torch
 
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
-                                param_dtype=torch.float32)
+    return dataclasses.replace(cfg, dtype=torch.float32,
+                               param_dtype=torch.float32)
+
+
+def engine_prompts(cfg, seed: int):
+    """Phase engine's prompts, one of each of _ENGINE_PROMPT_LENS."""
     rng = random.Random(seed)
-    prompts = [[rng.randint(1, cfg.vocab_size - 1) for _ in range(n)]
-               for n in (5, 17, 40, 64)]
-    want = [G.generate(p32, torch.tensor([p], device="cuda"), cfg32,
-                       max_new_tokens=32)[0, len(p):].tolist()
-            for p in prompts]
-    eng = E.InferenceEngine(p32, cfg32, slots=8, max_prompt_len=64,
-                            max_new_tokens=32, greedy=True, seed=seed)
-    t0 = time.perf_counter()
+    return [[rng.randint(1, cfg.vocab_size - 1) for _ in range(n)]
+            for n in _ENGINE_PROMPT_LENS]
+
+
+def engine_tokens(E, params, cfg, prompts, seed: int):
+    """Greedy tokens of phase engine's in-process engine (slots 8,
+    max_prompt 64, _ENGINE_MAX_NEW new tokens; the prompts submitted
+    together and driven by step())."""
+    eng = E.InferenceEngine(params, cfg, slots=8, max_prompt_len=64,
+                            max_new_tokens=_ENGINE_MAX_NEW, greedy=True,
+                            seed=seed)
     reqs = [eng.submit(p) for p in prompts]
     for _ in range(1000):
         if all(r.done.is_set() for r in reqs):
             break
         eng.step()
+    return [list(r.tokens) for r in reqs]
+
+
+def phase_engine_fp32(E, G, cfg, p32, seed: int):
+    """The fp32 engine token for token against the port's generate()."""
+    import torch
+
+    cfg32 = fp32_config(cfg)
+    prompts = engine_prompts(cfg, seed)
+    want = [G.generate(p32, torch.tensor([p], device="cuda"), cfg32,
+                       max_new_tokens=_ENGINE_MAX_NEW)[0, len(p):].tolist()
+            for p in prompts]
+    t0 = time.perf_counter()
+    got = engine_tokens(E, p32, cfg32, prompts, seed)
     wall = time.perf_counter() - t0
-    got = [list(r.tokens) for r in reqs]
     match = [a == b for a, b in zip(got, want)]
     _emit({"phase": "engine", "dtype": "float32", "tf32": False,
            "prompt_lens": [len(p) for p in prompts], "max_new_tokens": 32,
@@ -912,6 +954,7 @@ def phase_serving(E, cfg, params, seed: int, name: str = "serving"):
     if errors or hung or bad_len or bad_vocab or \
             len(results) != clients * per_client:
         raise AssertionError(f"{name} phase failed")
+    return n_tok / wall
 
 
 
@@ -1193,6 +1236,35 @@ def runtime_receive(refs):
             "row_sums": _row_sums(t), "get_s": get_s}
 
 
+def _llama_bf16():
+    import torch
+
+    from ray_tpu_torch.models import config as C
+
+    return C.get_config("llama3-1b", param_dtype=torch.bfloat16)
+
+
+def counted_forward(params, cfg, seed: int) -> dict:
+    """The forward at [4, 2048] (phase forward's tokens) in this process,
+    TF32 off, B1's launches counted around it: {"launches", "logits" (the
+    last position's, fp32 from the forward as the reference's, in bf16),
+    "s"}."""
+    import torch
+
+    from ray_tpu_torch.models import transformer as T
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tokens = forward_tokens(cfg, seed)
+    _zero_counts(fa)
+    t0 = time.perf_counter()
+    logits = T.forward(params, tokens, cfg)
+    torch.cuda.synchronize()
+    return {"launches": _counts(fa), "s": time.perf_counter() - t0,
+            "logits": logits[:, -1].to(torch.bfloat16)}
+
+
 class RuntimeActor:
     """The runtime phase's num_gpus=1 actor. Defined here and referenced
     as ``chip_smoke.RuntimeActor``, so it pickles by reference."""
@@ -1210,26 +1282,15 @@ class RuntimeActor:
 
     def forward(self, seed: int):
         """llama3-1b's bf16 forward at [4, 2048] from the phase's seed,
-        B1's launches counted around it; the last position's logits (fp32
-        from the forward, as the reference's) in bf16."""
+        B1's launches counted around it (counted_forward)."""
         import torch
 
-        from ray_tpu_torch.models import config as C
         from ray_tpu_torch.models import transformer as T
-        fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
 
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        cfg = C.get_config("llama3-1b", param_dtype=torch.bfloat16)
+        cfg = _llama_bf16()
         params = T.init_params(torch.Generator(
             device="cuda").manual_seed(seed), cfg, device="cuda")
-        tokens = forward_tokens(cfg, seed)
-        _zero_counts(fa)
-        logits = T.forward(params, tokens, cfg)
-        torch.cuda.synchronize()
-        launches = _counts(fa)
-        return {"launches": launches,
-                "logits": logits[:, -1].to(torch.bfloat16)}
+        return counted_forward(params, cfg, seed)
 
     def tensor(self, nbytes: int, seed: int):
         return _runtime_tensor(nbytes, seed)
@@ -1353,6 +1414,357 @@ def phase_runtime(T, cfg, params, seed: int):
         raise AssertionError(f"runtime phase failed: "
                              f"{[k for k, v in checks.items() if not v]}")
     return fwd["launches"]["flash_fwd"]
+
+
+class ServeForward:
+    """Phase serve's weights-by-reference deployment: bound with the
+    driver's llama3-1b bf16 params (CUDA tensors), which serve.run puts
+    into the object plane leaf by leaf and the replica fetches before this
+    class is built. Defined here and referenced as
+    ``chip_smoke.ServeForward``, so it pickles by reference."""
+
+    def __init__(self, params):
+        self._entered = time.time()
+        self.params = params
+        self._ready = time.time()
+
+    def timings(self) -> dict:
+        """Stamps on the host's wall clock: this class's __init__ entry and
+        end; where the params landed."""
+        return {"init_entry": self._entered, "init_end": self._ready,
+                "param_devices": sorted({str(w.device) for w in
+                                         _tensor_leaves(self.params)}),
+                "cuda_visible_devices":
+                    os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+    def forward(self, seed: int) -> dict:
+        return counted_forward(self.params, _llama_bf16(), seed)
+
+    def fetch(self, refs) -> float:
+        """Seconds to get ``refs`` (a list, so they arrive unresolved: new
+        objects of the same bytes) onto the card in this process, whose
+        torch and CUDA context are made by now."""
+        import torch
+
+        import ray_tpu_torch
+
+        t0 = time.perf_counter()
+        ray_tpu_torch.get(refs, timeout=600)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+
+def _tensor_leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _tensor_leaves(v)
+        else:
+            yield v
+
+
+class ServeLLMProbe:
+    """Phase serve's bf16 replica: build_continuous_llm_deployment's
+    replica, plus the decode-chunk probe phase serving takes in process
+    (_decode_chunk_profile; it stops the replica's engine, so it runs after
+    the requests). Referenced as ``chip_smoke.ServeLLMProbe``."""
+
+    def __init__(self, *args, **kwargs):
+        from ray_tpu_torch.serve.llm import _ContinuousLLMReplica
+
+        self.replica = _ContinuousLLMReplica(*args, **kwargs)
+
+    def __call__(self, *args, **kwargs):
+        return self.replica(*args, **kwargs)
+
+    def stream(self, *args, **kwargs):
+        return self.replica.stream(*args, **kwargs)
+
+    def engine_stats(self) -> dict:
+        return self.replica.engine_stats()
+
+    def decode_chunk_profile(self, steps: int) -> dict:
+        from ray_tpu_torch.models import engine as E
+
+        eng = self.replica.engine
+        eng.shutdown()
+        return _decode_chunk_profile(E, eng, eng.cfg, steps)
+
+
+def _timed(fn, into: list):
+    """``fn`` adding each call's seconds to ``into``."""
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        result = fn(*args, **kwargs)
+        into.append(time.perf_counter() - t0)
+        return result
+    return wrapper
+
+
+def _serve_fp32(E, T, cfg, seed: int) -> dict:
+    """Check 1: the fp32 continuous replica against the in-process engine."""
+    import torch
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.llm import build_continuous_llm_deployment
+
+    cfg32 = fp32_config(cfg)
+    prompts = engine_prompts(cfg, seed)
+    t0 = time.perf_counter()
+    app = build_continuous_llm_deployment(
+        cfg32, name="fp32", slots=8, max_prompt_len=64,
+        max_new_tokens=_ENGINE_MAX_NEW, seed=seed)
+    h = serve.run(app, name="fp32", route_prefix="/fp32", timeout_s=600)
+    ready_s = time.perf_counter() - t0
+    futs = [h.remote(p) for p in prompts]
+    called = [f.result(timeout_s=600)["token_ids"] for f in futs]
+    streamed = [[c["token_id"] for c in h.options(
+        method_name="stream", stream=True).remote(p)] for p in prompts]
+    serve.delete("fp32")
+    p32 = T.init_params(torch.Generator(device="cuda").manual_seed(seed),
+                        cfg32, device="cuda")
+    want = engine_tokens(E, p32, cfg32, prompts, seed)
+    del p32
+    torch.cuda.empty_cache()
+    return {"n_layers": cfg32.n_layers, "dtype": "float32",
+            "prompt_lens": [len(p) for p in prompts],
+            "max_new_tokens": _ENGINE_MAX_NEW,
+            "lease": app.deployment.config.ray_actor_options,
+            "deploy_to_ready_s": ready_s,
+            "call_matches_engine": [a == b for a, b in zip(called, want)],
+            "stream_matches_engine": [a == b for a, b in
+                                      zip(streamed, want)]}
+
+
+def _serve_bf16(cfg, seed: int, serving_tps) -> dict:
+    """Check 2: phase serving's cell through a handle, and one request
+    through the HTTP proxy."""
+    import urllib.request
+
+    import chip_smoke as CS  # by reference, not as __main__
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.llm import build_continuous_llm_deployment
+
+    clients, per_client, max_new = 8, 4, 64
+    app = build_continuous_llm_deployment(
+        cfg, name="bf16", slots=8, max_prompt_len=64, max_new_tokens=max_new,
+        decode_chunk=16, fetch_every=4, seed=seed)
+    app.deployment.func_or_class = CS.ServeLLMProbe  # the same replica
+    h = serve.run(app, name="bf16", route_prefix="/bf16", timeout_s=600)
+    stream = h.options(method_name="stream", stream=True)
+    rng = random.Random(seed + 3)
+    warm = [h.remote([rng.randint(1, 200) for _ in range(n)], 4)
+            for n in _SERVE_WARMUP_LENS]
+    for f in warm:
+        f.result(timeout_s=600)
+    results, errors, lock = [], [], threading.Lock()
+
+    def client(cid):
+        nxt = _workload(seed + 17 + cid, 64, max_new)
+        try:
+            for _ in range(per_client):
+                prompt, want = nxt()
+                t0 = time.perf_counter()
+                ttft, toks = None, []
+                for chunk in stream.remote(prompt, want):
+                    if ttft is None:
+                        ttft = time.perf_counter() - t0
+                    toks.append(chunk["token_id"])
+                with lock:
+                    results.append((want, toks, ttft,
+                                    time.perf_counter() - t0))
+        except BaseException as e:  # reported below, fails the phase
+            with lock:
+                errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    hung = sum(t.is_alive() for t in threads)
+    stats = h.options(method_name="engine_stats").remote().result(
+        timeout_s=60)
+
+    # one request through the HTTP proxy, then the same through the handle
+    prompt = [rng.randint(1, 200) for _ in range(20)]
+    port = serve.start(serve.HTTPOptions(port=0))
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/bf16", data=json.dumps(prompt).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        http_tokens = json.loads(r.read())["token_ids"]
+    handle_tokens = h.remote(prompt).result(timeout_s=300)["token_ids"]
+    profile = h.options(method_name="decode_chunk_profile").remote(
+        16).result(timeout_s=300)
+    serve.delete("bf16")
+
+    n_tok = sum(len(r[1]) for r in results)
+    lat = [r[3] for r in results]
+    ttft = [r[2] for r in results if r[2] is not None]
+    tps = n_tok / wall
+    return {
+        "dtype": "bfloat16", "n_layers": cfg.n_layers, "clients": clients,
+        "requests": len(results), "want_requests": clients * per_client,
+        "warmup_requests": len(warm), "errors": errors,
+        "hung_clients": hung,
+        "wrong_length": sum(len(t) != w for w, t, _, _ in results),
+        "out_of_vocab": sum(any(not 0 <= x < cfg.vocab_size for x in t)
+                            for _, t, _, _ in results),
+        "generated_tokens": n_tok, "wall_s": wall, "tokens_per_s": tps,
+        "serving_tokens_per_s": serving_tps,
+        "ratio_to_serving": tps / serving_tps if serving_tps else None,
+        "latency_p50_s": _pct(lat, 50) if lat else None,
+        "latency_p95_s": _pct(lat, 95) if lat else None,
+        "ttft_p50_s": _pct(ttft, 50) if ttft else None,
+        "ttft_p95_s": _pct(ttft, 95) if ttft else None,
+        "engine_stats": stats,
+        "host_ms_per_decode_substep_dispatch": (
+            stats["dispatch_wall_s"] / stats["decode_steps"] * 1e3
+            if stats["decode_steps"] else None),
+        "decode_chunk": profile,
+        "http": {"prompt_len": len(prompt), "tokens": len(http_tokens),
+                 "equal_to_handle": http_tokens == handle_tokens}}
+
+
+def _serve_by_ref(T, cfg, params, seed: int) -> dict:
+    """Check 3: the driver's bf16 params by reference into a num_gpus=1
+    replica, its forward through B1."""
+    import torch
+
+    import chip_smoke as CS
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve import api as serve_api
+
+    nbytes = sum(w.numel() * w.element_size()
+                 for w in _tensor_leaves(params))
+    digest_s, put_s = [], []
+    digest, put = serve_api._weights_digest, serve_api._put_weights
+    serve_api._weights_digest = _timed(digest, digest_s)
+    serve_api._put_weights = _timed(put, put_s)
+    # the replica's start includes fetching 2.47 GB: a start deadline past
+    # the 10 s default
+    dep = serve.deployment(CS.ServeForward, name="by_ref",
+                           ray_actor_options={"num_gpus": 1},
+                           health_check_timeout_s=300)
+    t0, wall0 = time.perf_counter(), time.time()
+    try:
+        h = serve.run(dep.bind(params), name="by_ref",
+                      route_prefix="/by_ref", timeout_s=600)
+    finally:
+        serve_api._weights_digest, serve_api._put_weights = digest, put
+    ready_s = time.perf_counter() - t0
+    stamps = h.timings.remote().result(timeout_s=60)
+    # two of the leaves again as new objects (a get of the replica's own
+    # refs would find them in its process; two, 1.07 GB, fit the arena
+    # beside the first put), fetched by the warm replica
+    again_leaves = [params["layers"][k] for k in ("w_gate", "w_up")]
+    again_bytes = sum(w.numel() * w.element_size() for w in again_leaves)
+    t0 = time.perf_counter()
+    fresh = [rt.put(w) for w in again_leaves]
+    reput_s = time.perf_counter() - t0
+    fetch_s = h.fetch.remote(fresh).result(timeout_s=600)
+    del fresh
+    out = h.forward.remote(seed).result(timeout_s=600)
+    again = h.forward.remote(seed).result(timeout_s=600)
+    serve.delete("by_ref")
+    ref_logits = T.forward(params, forward_tokens(cfg, seed), cfg)[:, -1] \
+        .to(torch.bfloat16)
+    torch.cuda.synchronize()
+    logits = out["logits"]
+    put_done = wall0 + sum(put_s)
+    return {
+        "bytes": nbytes, "leaves": len(put_s),
+        "deploy_to_ready_s": ready_s,
+        "digest_s": sum(digest_s), "put_s": sum(put_s) - sum(digest_s),
+        "put_GB_per_s": nbytes / (sum(put_s) - sum(digest_s)) / 1e9,
+        # from the last put to the class's __init__: the replica's
+        # placement, its worker's torch import and CUDA context, and the
+        # fetch of every leaf onto the card
+        "start_and_fetch_s": stamps["init_entry"] - put_done,
+        # new objects of two leaves' bytes: put by the driver, fetched by
+        # the warm replica
+        "again_bytes": again_bytes, "reput_s": reput_s,
+        "reput_GB_per_s": again_bytes / reput_s / 1e9, "fetch_s": fetch_s,
+        "fetch_GB_per_s": again_bytes / fetch_s / 1e9,
+        "init_s": stamps["init_end"] - stamps["init_entry"],
+        "init_to_ready_s": wall0 + ready_s - stamps["init_end"],
+        "param_devices": stamps["param_devices"],
+        "cuda_visible_devices": stamps["cuda_visible_devices"],
+        "first_forward_s": out["s"], "second_forward_s": again["s"],
+        "launches": out["launches"], "launches_again": again["launches"],
+        "logits_shape": list(logits.shape), "dtype": str(logits.dtype),
+        "device": logits.device.type,
+        "bitwise_equal": bool(torch.equal(logits, ref_logits))}
+
+
+def phase_serve(E, T, cfg, params, seed: int, serving_tps):
+    """The port's Serve on the card (the module's docstring, serve).
+    Returns the by-reference replica's B1 launches."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+
+    row = {"phase": "serve", "card": _nvidia_smi()}
+    rt.init(num_cpus=4, object_store_memory=_RUNTIME_STORE_BYTES,
+            log_to_driver=False)
+    try:
+        row["gpus_detected"] = rt.cluster_resources().get("GPU", 0)
+        for name, check, args in (
+                ("fp32", _serve_fp32, (E, T, cfg, seed)),
+                ("bf16", _serve_bf16, (cfg, seed, serving_tps)),
+                ("by_ref", _serve_by_ref, (T, cfg, params, seed))):
+            try:
+                row[name] = check(*args)
+            except Exception:  # recorded; the checks below fail on it
+                traceback.print_exc()
+                row[name] = {"error": traceback.format_exc(limit=2)}
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+    for _ in range(100):
+        left = _workers_left()
+        if not left:
+            break
+        time.sleep(0.1)
+    row["workers_left"] = left
+    f32, b16, ref = row["fp32"], row["bf16"], row["by_ref"]
+    checks = {"ran": not any("error" in r for r in (f32, b16, ref))}
+    if checks["ran"]:
+        checks.update(_serve_checks(cfg, f32, b16, ref))
+    checks["no_worker_left"] = not left
+    row["checks"] = checks
+    row["ok"] = all(checks.values())
+    _emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"serve phase failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return ref["launches"]["flash_fwd"]
+
+
+def _serve_checks(cfg, f32, b16, ref) -> dict:
+    return {
+        "fp32_call": all(f32["call_matches_engine"]),
+        "fp32_stream": all(f32["stream_matches_engine"]),
+        "fp32_lease": f32["lease"] == {"num_gpus": 1},
+        "bf16_served": (not b16["errors"] and not b16["hung_clients"]
+                        and not b16["wrong_length"]
+                        and not b16["out_of_vocab"]
+                        and b16["requests"] == b16["want_requests"]),
+        "http_equals_handle": b16["http"]["equal_to_handle"],
+        "by_ref_launches": ref["launches"] == ref["launches_again"] == {
+            "flash_fwd": cfg.n_layers, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0},
+        "by_ref_on_card": (ref["param_devices"] == ["cuda:0"]
+                           and ref["cuda_visible_devices"] == "0"),
+        "by_ref_logits": (ref["logits_shape"] == [4, cfg.vocab_size]
+                          and ref["dtype"] == "torch.bfloat16"
+                          and ref["device"] == "cuda"
+                          and ref["bitwise_equal"])}
 
 
 def _grads(T, TR, params, batch, cfg, mesh=None):
@@ -2085,7 +2497,10 @@ def run(seed: int) -> int:
     attempt("engine_mesh", phase_engine_mesh, E, cfg, p32, seed)
     del p32
     torch.cuda.empty_cache()
-    attempt("serving", phase_serving, E, cfg, params, seed)
+    serving_tps = attempt("serving", phase_serving, E, cfg, params, seed)
+    torch.cuda.empty_cache()
+    serve_launches = attempt("serve", phase_serve, E, T, cfg, params, seed,
+                             serving_tps)
     torch.cuda.empty_cache()
 
     # Mixture-of-Experts: the 16-layer model (13.7 GB in bf16), then the
@@ -2150,6 +2565,7 @@ def run(seed: int) -> int:
         "launches_by_path": {
             "forward": launches, "train_step": train_launches["flash_fwd"],
             "runtime_actor_forward": runtime_launches,
+            "serve_forward": serve_launches,
             "moe_forward": moe_launches,
             "moe_train_step": moe_train_launches["flash_fwd"],
             "train_dots_step": dots_launches["flash_fwd"],

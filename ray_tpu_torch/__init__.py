@@ -9,7 +9,9 @@ attention, tensor, pipeline and expert axes), the entry points
 kernels, forward and backward (``ops``), which run as hand-written CUDA on
 the card and as their plain PyTorch versions on CPU tensors, and the
 runtime core (``core``: tasks, actors and the shared-memory object store,
-with GPU leases and torch tensors on the object plane). Entry points of
+with GPU leases and torch tensors on the object plane), and Serve
+(``serve``: deployments, handles, proxies and the LLM deployments on the
+port's engine). Entry points of
 the model stack run on CUDA unless the caller passes ``device="cpu"``.
 
 Public core API mirrors the reference's (``ray.*``):
@@ -26,8 +28,8 @@ import importlib
 from ray_tpu_torch._version import __version__
 
 _SUBMODULES = ("models", "ops", "parallel", "entry", "interop", "core",
-               "tracing", "metrics", "profiling", "runtime_env", "state",
-               "trace_analysis", "usage_stats")
+               "serve", "tracing", "metrics", "profiling", "runtime_env",
+               "state", "trace_analysis", "usage_stats")
 
 _API = ("ActorClass", "ActorHandle", "NodeAffinitySchedulingStrategy",
         "PlacementGroup", "PlacementGroupSchedulingStrategy",

@@ -24,15 +24,27 @@ heads, d_ff columns, vocabulary rows and experts (the ``tensor`` and
 heads' part of the cache; decode and prefill sum the attention and FFN
 outputs over the ranks and gather the logits before sampling. The
 reference is one controller; here every rank runs its own engine, so all
-ranks must run the same schedule: drive it by ``step()`` with the same
-submissions on every rank, and the same ``seed`` (the sampling draws then
-agree). ``serve_forever`` admits requests as they come and would need rank
-0's admissions broadcast: on more than one rank it is refused (ROADMAP
-A1c).
+ranks must run the same schedule, with the same ``seed`` (the sampling
+draws then agree, as every rank samples from the same gathered logits).
+Two ways keep them in step:
+
+  - ``step()`` on every rank with the same submissions on every rank;
+  - ``serve_forever()`` on every rank, with requests submitted on rank 0
+    alone (the engine's ranks must then be the whole world). Rank 0 admits,
+    delivers and reclaims slots at eos; before each step it broadcasts one
+    small plan over a gloo group of the world: the admitted ``(slot,
+    prompt)`` of each prefill group, the slots the decode chunk advances
+    (none: no dispatch) and a stop flag. Every other rank runs ``follow()``,
+    which applies each plan with the same device ops and delivers nothing.
+    Rank 0 broadcasts a plan on every pass of its loop, idle ones included,
+    so a dead peer fails the next broadcast or collective, and a stuck one
+    within ``parallel.world.COLLECTIVE_TIMEOUT_S``; the engine then dies as
+    on any step error: every waiting request fails, none hangs.
 """
 
 from __future__ import annotations
 
+import datetime
 import itertools
 import queue
 import threading
@@ -42,6 +54,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.config import TransformerConfig
@@ -53,6 +66,7 @@ from ray_tpu_torch.models.transformer import (Params, embed_tokens, layer,
                                               rms_norm)
 from ray_tpu_torch.parallel.mesh import check_supported, mesh_device
 from ray_tpu_torch.parallel.sharding import local_shard, logical_placements
+from ray_tpu_torch.parallel.world import COLLECTIVE_TIMEOUT_S
 
 SlotCache = Dict[str, torch.Tensor]
 # {"k"/"v": [L, B, S, KV, hd], "pos": [B], "start": [B]}: pos[b] is slot b's
@@ -233,7 +247,8 @@ class InferenceEngine:
     ``step()`` is one engine iteration: admit queued prompts into free
     slots (prefill), then advance every active slot (decode).
     ``serve_forever`` runs steps on a background thread; ``submit`` /
-    ``submit_stream`` are thread-safe entry points. The engine runs on
+    ``submit_stream`` are thread-safe entry points (on a mesh under
+    ``serve_forever``: rank 0's; module docstring). The engine runs on
     ``device``, CUDA unless the caller asks for the CPU; with a ``mesh`` on
     the mesh's device, holding this rank's part of ``params`` (the full
     params, plain or DTensors, the same on every rank; module docstring).
@@ -251,7 +266,7 @@ class InferenceEngine:
         if mesh is not None:
             check_supported(mesh, cfg)
             self.mesh, params = _model_part(mesh, params, cfg)
-            self._ranks = mesh.size()
+            self._ranks = self.mesh.size()
             self.device = mesh_device(mesh)
         else:
             self.device = resolve_device(device)
@@ -307,6 +322,9 @@ class InferenceEngine:
         self._thread: Optional[threading.Thread] = None
         self._fetcher: Optional[threading.Thread] = None
         self._fetch_evt = threading.Event()   # work for the fetcher
+        # serve_forever on a mesh: the gloo group that carries rank 0's
+        # step plans (module docstring)
+        self._plan_group = None
         # set when the step loop died on an unrecoverable error; submit()
         # raises from then on. _death_lock orders submit's check+enqueue
         # against _die's drain (not _lock, which a whole step() holds)
@@ -386,27 +404,45 @@ class InferenceEngine:
     def _admit_group(self, group: List[tuple]):
         """Dispatch ONE batched prefill for ``group`` = [(slot, req)]; the
         sampled first tokens join the device-side chain and reach the host
-        in the next chunk's echo column. All rows pad to the largest
-        member's bucket."""
+        in the next chunk's echo column."""
+        self._prefill([(slot, req.prompt) for slot, req in group])
+        for slot, req in group:
+            self._slot_req[slot] = req
+        self.stats["prefills"] += len(group)
+        self.stats["prefill_dispatches"] += 1
+
+    def _prefill(self, group: List[tuple]):
+        """The device op of one admission group, ``group`` = [(slot,
+        prompt)]: one batched prefill, all rows padded to the largest
+        member's bucket; the first samples join the device-side chain."""
         K = len(group)
-        P = max(self._bucket(len(req.prompt)) for _, req in group)
+        P = max(self._bucket(len(prompt)) for _, prompt in group)
         toks = np.full((K, P), self.pad_id, np.int32)
         slots = np.zeros(K, np.int64)
         starts = np.zeros(K, np.int32)
-        for i, (slot, req) in enumerate(group):
-            toks[i, P - len(req.prompt):] = req.prompt
+        for i, (slot, prompt) in enumerate(group):
+            toks[i, P - len(prompt):] = prompt
             slots[i] = slot
-            starts[i] = P - len(req.prompt)
+            starts[i] = P - len(prompt)
         slots_dev = self._tensor(slots)
         self.cache, first = prefill_slots(
             self.params, self.cache, self._tensor(toks), slots_dev,
             self._tensor(starts), self._rng, self.cfg, self.greedy,
             self.temperature, self.mesh)
         self._next_tok_dev[slots_dev] = first
-        for slot, req in group:
-            self._slot_req[slot] = req
-        self.stats["prefills"] += K
-        self.stats["prefill_dispatches"] += 1
+
+    def _decode(self, active_slots: List[int]) -> torch.Tensor:
+        """The device op of one decode chunk over ``active_slots``; the
+        last samples become the next chunk's inputs. -> [B, chunk+1]."""
+        active = np.zeros(self.slots, bool)
+        active[active_slots] = True
+        self.cache, toks = decode_slots(
+            self.params, self.cache, self._next_tok_dev,
+            self._tensor(active), self._rng, self.cfg, self.greedy,
+            self.temperature, self.eos_id, steps=self.decode_chunk,
+            mesh=self.mesh)
+        self._next_tok_dev = toks[:, -1].contiguous()
+        return toks
 
     _GROUP_SIZES = (4, 2, 1)  # prefill batch sizes, largest first
 
@@ -464,11 +500,25 @@ class InferenceEngine:
             return self._step_locked()
 
     def _step_locked(self) -> bool:
-        # 1) admission into planned-free slots (no fetch needed to know)
-        admitted = self._admit_locked()
-        # 2) dispatch one full-width decode chunk when there is planned
-        #    work and (pipelined mode) room under the in-flight cap
-        dispatched = self._dispatch_locked()
+        # 1) admission into planned-free slots (no fetch needed to know),
+        #    one batched prefill per power-of-two group
+        take = self._take_locked()
+        groups = self._grouped(take)
+        # 2) one full-width decode chunk over the slots with planned work,
+        #    if (pipelined mode) there is room under the in-flight cap
+        active = self._active_slots({slot for slot, _ in take})
+        if self._plan_group is not None:  # rank 0 of a served mesh
+            try:
+                self._send_plan({
+                    "groups": [[(slot, req.prompt) for slot, req in group]
+                               for group in groups],
+                    "active": active, "stop": False})
+            except BaseException as e:
+                # neither the queue nor a slot holds ``take`` any more
+                _fail([req for _, req in take], e)
+                raise
+        admitted = self._admit_locked(groups)
+        dispatched = self._dispatch_locked(active)
         # 3) delivery: inline mode delivers here once fetch_every chunks
         #    are pending; pipelined mode hands them to the fetcher thread
         processed = False
@@ -482,9 +532,8 @@ class InferenceEngine:
             self._fetch_evt.set()
         return bool(admitted or dispatched or processed)
 
-    def _admit_locked(self) -> int:
-        """Admit queued prompts into planned-free slots; one batched
-        prefill per power-of-two group. Returns #admitted."""
+    def _take_locked(self) -> List[tuple]:
+        """Dequeue prompts into planned-free slots: [(slot, req)]."""
         take: List[tuple] = []
         for slot in range(self.slots):
             if self._slot_left[slot] > 0:
@@ -497,40 +546,56 @@ class InferenceEngine:
             except queue.Empty:
                 break
             take.append((slot, req))
-        i = 0
+        return take
+
+    def _grouped(self, take: List[tuple]) -> List[List[tuple]]:
+        """``take`` split into prefill groups of _GROUP_SIZES."""
+        groups, i = [], 0
         while i < len(take):
             K = next(k for k in self._GROUP_SIZES if k <= len(take) - i)
-            group = take[i:i + K]
+            groups.append(take[i:i + K])
             i += K
+        return groups
+
+    def _admit_locked(self, groups: List[List[tuple]]) -> int:
+        """Prefill each admission group; returns #admitted."""
+        for j, group in enumerate(groups):
             try:
                 self._admit_group(group)
             except BaseException as e:
                 # a failed prefill poisons the engine: fail this group AND
                 # every later dequeued-but-ungrouped request, which neither
                 # the queue nor a slot holds any more, then re-raise
-                for _slot, req in group + take[i:]:
-                    req.error = e
-                    req.finish("error")
+                _fail([req for _, req in group + sum(groups[j + 1:], [])],
+                      e)
                 raise
             for slot, req in group:
                 # the plan includes the prefill-sampled first token
                 self._slot_left[slot] = req.max_new_tokens
                 self._slot_new[slot] = True
-        return len(take)
+        return sum(len(g) for g in groups)
 
-    def _dispatch_locked(self) -> bool:
+    def _active_slots(self, admitted) -> List[int]:
+        """The slots the next decode chunk advances once ``admitted`` are
+        in: every slot with planned work, or none (no dispatch) at the
+        dispatch-ahead cap."""
         active_slots = [s for s in range(self.slots)
-                        if self._slot_left[s] > 0]
+                        if self._slot_left[s] > 0 or s in admitted]
         if not active_slots:
-            return False
+            return []
         if self._fetcher is not None and \
                 len(self._inflight) >= self.max_inflight:
             # count stall EPISODES, not the parked loop's wakeups
             if not self._at_cap:
                 self.stats["cap_stalls"] += 1
                 self._at_cap = True
-            return False  # dispatch-ahead cap: wait for the fetcher
+            return []  # dispatch-ahead cap: wait for the fetcher
         self._at_cap = False
+        return active_slots
+
+    def _dispatch_locked(self, active_slots: List[int]) -> bool:
+        if not active_slots:
+            return False
         t0 = time.perf_counter()
         width = self.decode_chunk
         snapshot = []
@@ -542,13 +607,7 @@ class InferenceEngine:
                              0 if new else 1, take))
             self._slot_left[slot] = max(
                 0, self._slot_left[slot] - (width + 1 if new else width))
-        active = np.zeros(self.slots, bool)
-        active[active_slots] = True
-        self.cache, toks = decode_slots(
-            self.params, self.cache, self._next_tok_dev,
-            self._tensor(active), self._rng, self.cfg, self.greedy,
-            self.temperature, self.eos_id, steps=width, mesh=self.mesh)
-        self._next_tok_dev = toks[:, -1].contiguous()
+        toks = self._decode(active_slots)
         self._inflight.append(self._queue_copy(toks, snapshot))
         self.stats["decode_steps"] += width
         self.stats["dispatch_wall_s"] += time.perf_counter() - t0
@@ -595,18 +654,27 @@ class InferenceEngine:
     def serve_forever(self):
         """Run the engine on a daemon thread until ``shutdown()``, plus a
         fetcher thread that waits for chunks' host copies behind the
-        dispatch loop."""
+        dispatch loop. On a mesh, call it on every rank: rank 0 serves and
+        broadcasts its step plans, every other rank runs ``follow()`` on
+        the daemon thread (module docstring)."""
         if self._thread is not None:
             return self
-        if self._ranks > 1:
-            raise NotImplementedError(
-                "serve_forever on a mesh of more than one rank needs rank "
-                "0's admission decisions broadcast to every rank: ROADMAP "
-                "A1c; drive the engine by step() with the same submissions "
-                "on every rank")
         self._stop.clear()
+        if self._ranks > 1 and self._join_plans() != 0:
+            self._thread = threading.Thread(target=self.follow,
+                                            name="llm-engine-follow",
+                                            daemon=True)
+            self._thread.start()
+            return self
 
         def loop():
+            try:
+                serve()
+            finally:
+                if self._plan_group is not None:
+                    self._stop_followers()
+
+        def serve():
             while not self._stop.is_set():
                 if self._fatal is not None:
                     return
@@ -667,6 +735,57 @@ class InferenceEngine:
         self._fetcher.start()
         return self
 
+    def _join_plans(self) -> int:
+        """Join the gloo group of the world that carries rank 0's step
+        plans (every rank calls this once); -> this rank."""
+        world = dist.get_world_size()
+        if self._ranks != world:
+            raise ValueError(
+                f"serve_forever on a mesh needs the engine's ranks to be the "
+                f"whole world, which rank 0's step plans are broadcast over: "
+                f"the engine has {self._ranks} ranks, the world {world}")
+        if self._plan_group is None:
+            self._plan_group = dist.new_group(
+                backend="gloo",
+                timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+        return dist.get_rank()
+
+    def _send_plan(self, plan: dict):
+        dist.broadcast_object_list([plan], src=0, group=self._plan_group)
+
+    def _stop_followers(self):
+        try:
+            self._send_plan({"groups": [], "active": [], "stop": True})
+        except Exception:  # noqa: BLE001 — a dead peer needs no stop
+            pass
+
+    def follow(self):
+        """A mesh rank other than 0 under ``serve_forever``: apply rank 0's
+        step plans with the same device ops (each admission group's
+        prefill, then the decode chunk) until rank 0 stops. Delivers
+        nothing. A failed broadcast or op (a dead peer, a timeout) kills
+        this engine and raises."""
+        if self._join_plans() == 0:
+            raise ValueError("rank 0 serves (serve_forever); it does not "
+                             "follow")
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)  # this thread's device
+        try:
+            while True:
+                box = [None]
+                dist.broadcast_object_list(box, src=0,
+                                           group=self._plan_group)
+                plan = box[0]
+                if plan["stop"]:
+                    return
+                for group in plan["groups"]:
+                    self._prefill(group)
+                if plan["active"]:
+                    self._decode(plan["active"])
+        except BaseException as e:
+            self._die(e)
+            raise
+
     def _check_alive(self):
         if self._fatal is not None:
             raise RuntimeError(
@@ -691,10 +810,7 @@ class InferenceEngine:
         for chunk in self._inflight:
             failed.extend(req for _, req, _, _ in chunk.snapshot)
         self._inflight = []
-        for req in failed:
-            if not req.done.is_set():
-                req.error = exc
-                req.finish("error")
+        _fail([req for req in failed if not req.done.is_set()], exc)
 
     def shutdown(self):
         self._stop.set()
@@ -724,6 +840,12 @@ class InferenceEngine:
         if req.error is not None:
             raise req.error
         return list(req.tokens)
+
+
+def _fail(reqs: List[_Request], exc: BaseException):
+    for req in reqs:
+        req.error = exc
+        req.finish("error")
 
 
 def _model_part(mesh, params: Params, cfg: TransformerConfig):

@@ -55,15 +55,20 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 
 def test_runtime_entry_points_load_no_torch():
-    """A worker process (python -m ray_tpu_torch.core.worker_main) and a
-    driver that imports the runtime API load no torch: the package's names
-    load on first access."""
+    """A worker process (python -m ray_tpu_torch.core.worker_main), a
+    driver that imports the runtime API, and Serve's controller, replica
+    and proxies (actors that never touch a model) load no torch: the
+    package's names load on first access, and the LLM deployments import
+    torch inside their replicas."""
     code = (
         "import json, sys\n"
         "import ray_tpu_torch\n"
         "import ray_tpu_torch.core.worker_main, ray_tpu_torch.core.api\n"
         "from ray_tpu_torch import init, remote, get, put, get_gpu_ids\n"
-        "from ray_tpu_torch import ObjectRef, RayTaskError\n"
+        "from ray_tpu_torch import ObjectRef, RayTaskError, serve\n"
+        "from ray_tpu_torch.serve import controller, replica, http_proxy\n"
+        "from ray_tpu_torch.serve import grpc_proxy, router, llm\n"
+        "serve.deployment(lambda x: x)\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'torch'"
         " or m.startswith('torch.') or m == 'jax')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,

@@ -13,7 +13,7 @@ every case; the JAX side runs first, unmeshed:
 - the masked eval step and the forward's DTensor logits (vocabulary over
   ``tensor``) on data=2 x fsdp=2 x tensor=2, 2e-4;
 - the tensor-parallel engine on data=4 x tensor=2 (tests/test_engine.py:
-  224-241), token for token against JAX's generate();
+  224-241), token for token against JAX's generate() under step();
 - the virtual tensor driver (both ranks in one process, the reductions
   sums, as chip_smoke.py runs it on one card) against the gloo ranks on
   the same rows: logits, loss and gradients bit for bit.
@@ -109,13 +109,15 @@ def test_tensor_parallel_forward_returns_vocab_sharded_logits(runs):
 
 def test_tensor_parallel_engine_matches_generate(runs):
     """Every rank's engine holds one of the two kv heads (cache [.., 1,
-    hd]) and yields JAX's greedy tokens; serve_forever on more than one
-    rank is refused, naming ROADMAP A1c."""
+    hd]) and yields JAX's greedy tokens under step(); serve_forever is
+    refused here, where the engine's 2 ranks are one of 4 replicas of an
+    8-rank world (rank 0's step plans go over the whole world; it serves
+    on a world of its own ranks in tests/test_torch_engine_mesh_serve.py)."""
     out, refs = runs
     for r in out:
         assert r["engine"]["tokens"] == refs["tokens"]
         assert r["engine"]["kv_heads_local"] == 1
-        assert "A1c" in r["engine"]["serve_forever"]
+        assert "whole world" in r["engine"]["serve_forever"]
 
 
 def test_virtual_tensor_driver_equals_gloo_run(runs):

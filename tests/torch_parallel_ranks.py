@@ -1,6 +1,7 @@
 """Rank functions of the port's multi-process tests (tests/test_torch_ring.py,
 tests/test_torch_parallel_train.py, tests/test_torch_tensor_parallel.py,
-tests/test_torch_pipeline.py, tests/test_torch_moe_parallel.py).
+tests/test_torch_pipeline.py, tests/test_torch_moe_parallel.py,
+tests/test_torch_engine_mesh_serve.py).
 
 Each runs in every rank of an 8-rank gloo world started by
 ``ray_tpu_torch.parallel.world.run_world``, computes every case of its test
@@ -15,7 +16,10 @@ import contextlib
 import dataclasses
 import fcntl
 import os
+import signal
 import tempfile
+import threading
+import time
 
 import numpy as np
 import torch
@@ -32,6 +36,7 @@ from ray_tpu_torch.parallel.pipeline import pipeline_scan
 from ray_tpu_torch.parallel.ring import (ring_attention,
                                          ring_backward_virtual,
                                          ring_forward_virtual)
+from ray_tpu_torch.parallel.world import World
 
 @contextlib.contextmanager
 def one_world_at_a_time():
@@ -242,7 +247,7 @@ def _engine_tokens(cfg, sizes, params_np, prompts, max_new):
     try:
         eng.serve_forever()
         refused = "ran"
-    except NotImplementedError as e:
+    except ValueError as e:
         refused = str(e)
     return {"tokens": [list(q.tokens) for q in reqs],
             "kv_heads_local": eng.cache["k"].shape[3],
@@ -368,3 +373,81 @@ def moe_rank(rank: int, spec: dict):
                     for name, (sizes, extra) in spec["train_meshes"].items()}
     return out
 
+
+# ---- serve_forever on a 2-rank tensor world (tests/test_torch_engine_mesh_serve.py)
+
+
+def _served_engine(spec):
+    cfg = C.tiny_config()
+    mesh = MeshSpec(data=1, fsdp=1, tensor=2).build("cpu")
+    params = params_from_numpy(spec["params"], cfg, "cpu")
+    return InferenceEngine(params, cfg, mesh=mesh, **spec["engine"])
+
+
+def serve_mesh_follower(rank: int, spec: dict):
+    """Rank 1: rank 0's step plans, until rank 0 stops."""
+    _served_engine(spec).follow()
+
+
+def serve_mesh_leader(spec: dict, results) -> None:
+    """Rank 0 of a World of 2 (this process): requests submitted at
+    staggered times from a client thread under serve_forever, one
+    streamed; then the follower is stopped (SIGSTOP) while a request waits
+    in its prefill, and killed. Puts a dict of plain results."""
+    world = World(serve_mesh_follower, 2, (spec,), device="cpu")
+    out = {"follower_pids": world.pids}
+    try:
+        eng = _served_engine(spec).serve_forever()
+        reqs = []
+
+        def client():
+            for prompt, max_new, delay in spec["requests"]:
+                time.sleep(delay)
+                reqs.append(eng.submit(prompt, max_new))
+
+        t = threading.Thread(target=client)
+        t.start()
+        t.join(60)
+        out["served"] = all(r.done.wait(60) for r in reqs)
+        out["tokens"] = [list(r.tokens) for r in reqs]
+        out["errors"] = [repr(r.error) for r in reqs if r.error is not None]
+        prompt, max_new, _ = spec["requests"][0]
+        out["streamed"] = list(eng.submit_stream(prompt, max_new))
+        pid = world.pids[0]
+        os.kill(pid, signal.SIGSTOP)
+        waiting = eng.submit(prompt, max_new)
+        time.sleep(1.0)
+        out["waited_while_stopped"] = not waiting.done.is_set()
+        os.kill(pid, signal.SIGKILL)
+        t0 = time.monotonic()
+        out["failed_after_kill"] = waiting.done.wait(60) and \
+            waiting.error is not None
+        out["fail_s"] = time.monotonic() - t0
+        try:
+            eng.submit(prompt, max_new)
+            out["refused_after"] = False
+        except RuntimeError:
+            out["refused_after"] = True
+        eng.shutdown()
+    finally:
+        world.shutdown()
+    out["followers_alive"] = [p.is_alive() for p in world.procs]
+    results.put(out)
+
+
+def replica_del_reaps_followers(results) -> None:
+    """A tensor_parallel=2 continuous replica on the CPU built in this
+    process: its tokens, its follower's pid, and whether the follower is
+    gone once ``__del__`` ran. Puts a dict."""
+    from ray_tpu_torch.serve.llm import _ContinuousLLMReplica
+
+    rep = _ContinuousLLMReplica("tiny", slots=2, max_prompt_len=8,
+                                max_new_tokens=4, tensor_parallel=2,
+                                device="cpu")
+    out = {"tokens": rep([3, 1, 4])["token_ids"],
+           "pids": rep.follower_pids()}
+    procs = rep._world.procs
+    rep.__del__()
+    out["alive_after_del"] = [p.is_alive() for p in procs]
+    out["world_left"] = torch.distributed.is_initialized()
+    results.put(out)
