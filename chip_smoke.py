@@ -105,6 +105,22 @@ phase:
             each against the fp32 step; five optimizer steps through the
             kernels with their launches counted; ms per step, tokens/s, MFU,
             peak memory and the device's busy share
+  trainer   the train cell through the port's Train library, after the
+            driver's state is freed: ray_tpu_torch.train.TorchTrainer with
+            one num_gpus=1 worker (trainer_loop) builds the state from
+            --seed, runs steps 1-5 reporting each loss, B1-B3 launches and
+            wall, reports the whole state as a checkpoint at step 3 (to the
+            driver through the object plane, then to disk) and fails once
+            after step 4's report; the gang restart reads the step-3
+            checkpoint back onto the card in a new worker and runs steps
+            4-5. Checks: no error; the worker sees GPU 0 alone; 32/16/16
+            launches every step; six reports (steps 1, 2, 3, 4, 4, 5); the
+            losses equal phase train's, and the restart's step 4 the first
+            attempt's, within 1e-6 relative; the kept checkpoint's per-leaf
+            checksums equal the step-3 state's; no worker left. Numbers:
+            the worker's start split, ms per step, peak memory, the
+            checkpoint's bytes and seconds (device to host, the report to
+            the driver, the write) and the restart's split
 
 After each phase a line {"phase_wall": name, "s": seconds}. Then the
 kernel summary line, the card's nvidia-smi line, and as the last
@@ -122,8 +138,10 @@ import json
 import math
 import os
 import random
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -247,6 +265,20 @@ _RUNTIME_PUT_BYTES = 1 << 30
 _RUNTIME_RETURN_BYTES = 256 << 20
 _RUNTIME_REL_TOL = 1e-3
 _WORKER_PROBE = "ray_tpu_torch[.]core[.]worker_main"
+# trainer: the runtime's arena holds the step-3 checkpoint once on its way
+# to the driver (llama3-1b's bf16 params, bf16 mu and bf16 nu: 7.4 GB) with
+# headroom. The host needs room for the arena, the worker's host copy of
+# the state and the copy read back from disk at once; the disk for one
+# checkpoint (num_to_keep=1) while the next is written. The worker's
+# losses must equal phase train's, which runs the same arithmetic on the
+# same card (B1-B3 use no atomics), and the restart's step the first
+# attempt's, to within _TRAINER_REL_TOL each.
+_TRAINER_STORE_BYTES = 12 << 30
+_TRAINER_HOST_BYTES = 40 << 30
+_TRAINER_DISK_BYTES = 16 << 30
+_TRAINER_CKPT_STEP = 3
+_TRAINER_FAIL_STEP = 4
+_TRAINER_REL_TOL = 1e-6
 # serve: phase engine's prompt lengths and new tokens (its fp32 check), and
 # the 8 warm-up requests the bf16 replica serves before the timed ones
 # (phase serving warms its engine up in process; a replica cannot be)
@@ -1979,7 +2011,8 @@ def phase_train(fa, T, TR, C, params, seed: int):
       (d) ms per step (steps 2-4, host clock around synchronized steps),
           tokens/s, MFU against 989 TFLOP/s from cfg.flops_per_token, peak
           memory, and the busy share of step 5 from torch.profiler.
-    Params are updated in place: this phase runs last."""
+    Params are updated in place: no later phase uses them. Returns the
+    first step's launches, the five losses and ms per step."""
     cfg = train_config(C)
     batch = train_batch(cfg, seed + 3)
 
@@ -2009,7 +2042,310 @@ def phase_train(fa, T, TR, C, params, seed: int):
     if not (parity["ok"] and run["finite"] and run["falling"]
             and launches_ok):
         raise AssertionError("train phase failed")
-    return run["launches_per_step"][0]
+    return {"launches": run["launches_per_step"][0],
+            "losses": run["losses"], "ms_per_step": step_ms}
+
+
+def _proc_start_time() -> float:
+    """This process's start, in seconds since the epoch (/proc: clock
+    ticks since boot, 10 ms)."""
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        btime = next(int(line.split()[1]) for line in f
+                     if line.startswith("btime"))
+    return btime + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def _leaf_checksums(tree) -> list:
+    """The exact integer sum of each leaf's bit patterns, in tree_leaves
+    order: the checksums the worker and the driver compare."""
+    import torch
+
+    from ray_tpu_torch.models.training import tree_leaves
+
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return [x.reshape(-1).view(ints[x.element_size()]).sum(
+        dtype=torch.int64).item() for x in tree_leaves(tree)]
+
+
+def trainer_loop(config):
+    """Phase trainer's loop, in the TorchTrainer's num_gpus=1 worker
+    (referenced as ``chip_smoke.trainer_loop``, so it pickles by
+    reference): phase train's cell, the state from the seed as ``run``
+    builds ``params`` (or, after the gang restart, from the checkpoint),
+    steps up to _TRAIN_STEPS with each loss, launches and wall reported;
+    the whole state reported as a checkpoint at _TRAINER_CKPT_STEP with
+    its per-leaf checksums; on the first attempt a failure right after
+    _TRAINER_FAIL_STEP's report."""
+    entered = time.time()
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import config as C
+    from ray_tpu_torch.models import training as TR
+    from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.ops import _build
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    imported = time.time()
+    for name in _build.sources():
+        _build.load(name)
+    ready = time.time()
+    free, _ = torch.cuda.mem_get_info()
+    start = {"process_start_t": _proc_start_time(), "loop_entry_t": entered,
+             "imports_s": imported - entered,
+             "kernel_libraries_s": ready - imported, "ready_t": ready,
+             "card_free_gib": free / 2**30,
+             "gpu_ids": ray_tpu_torch.get_gpu_ids(),
+             "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+             "device_count": torch.cuda.device_count(),
+             "current_device": torch.cuda.current_device(),
+             "pid": os.getpid()}
+    seed = config["seed"]
+    cfg = train_config(C)
+    tx = TR.make_optimizer(3e-4, mu_dtype=torch.bfloat16)
+    batch = train_batch(cfg, seed + 3)
+    restored = train.get_checkpoint()
+    if restored is None:
+        params = T.init_params(torch.Generator(device="cuda").manual_seed(
+            seed), _llama_bf16(), device="cuda")
+        state = {"step": torch.zeros((), dtype=torch.int32, device="cuda"),
+                 "params": params, "opt_state": tx.init(params)}
+        del params
+    else:
+        t0 = time.perf_counter()
+        tree, _ = restored.to_pytree()
+        t1 = time.perf_counter()
+        state = TR.tree_map(lambda x: x.to("cuda"), tree)
+        torch.cuda.synchronize()
+        start["restore"] = {"read_s": t1 - t0,
+                            "h2d_s": time.perf_counter() - t1}
+        del tree
+    step_fn = TR.make_train_step(cfg, tx)
+    torch.cuda.reset_peak_memory_stats()
+    first = int(state["step"]) + 1
+    for i in range(first, _TRAIN_STEPS + 1):
+        _zero_counts(fa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step_fn(state, batch)
+        loss, norm = m["loss"].item(), m["grad_norm"].item()
+        torch.cuda.synchronize()
+        metrics = {"step": i, "loss": loss, "grad_norm": norm,
+                   "launches": _counts(fa),
+                   "wall_ms": (time.perf_counter() - t0) * 1e3,
+                   "end_t": time.time(), "restart": restored is not None}
+        if i == first:
+            metrics["start"] = start
+        checkpoint = None
+        if i == _TRAINER_CKPT_STEP:
+            metrics["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            metrics["checksums"] = _leaf_checksums(state)
+            metrics["ckpt_bytes"] = sum(x.numel() * x.element_size()
+                                        for x in TR.tree_leaves(state))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            checkpoint = train.Checkpoint.from_pytree(state)
+            metrics["d2h_s"] = time.perf_counter() - t0
+            metrics["report_t"] = time.time()
+        fail = (i == _TRAINER_FAIL_STEP
+                and not os.path.exists(config["marker"]))
+        if fail:
+            metrics["raise_t"] = time.time()
+        train.report(metrics, checkpoint=checkpoint)
+        if fail:
+            open(config["marker"], "w").close()
+            raise RuntimeError("phase trainer: the injected worker failure")
+
+
+def _mem_available() -> int:
+    with open("/proc/meminfo") as f:
+        kib = next(int(line.split()[1]) for line in f
+                   if line.startswith("MemAvailable:"))
+    return kib << 10
+
+
+def phase_trainer(fa, T, TR, C, seed: int, train_row):
+    """Phase train's cell through the port's Train library: a TorchTrainer
+    with one num_gpus=1 worker (the module's docstring, trainer). Returns
+    the worker's launches in its first step."""
+    import torch
+
+    import chip_smoke as CS  # by reference, not as __main__
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+
+    if train_row is None:
+        # phase train did not finish: its five steps here, from the seed
+        cfg = train_config(C)
+        params = T.init_params(torch.Generator(device="cuda").manual_seed(
+            seed), _llama_bf16(), device="cuda")
+        ref = _train_steps(fa, TR, cfg, params, train_batch(cfg, seed + 3),
+                           _TRAIN_STEPS, False)
+        walls = ref["walls_ms"][1:-1]  # steps 2-4, as phase train's
+        train_row = {"losses": ref["losses"],
+                     "ms_per_step": sum(walls) / len(walls)}
+        del params, ref
+        torch.cuda.empty_cache()
+    avail = _mem_available()
+    if avail < _TRAINER_HOST_BYTES:
+        raise AssertionError(f"trainer phase: {avail / 2**30:.1f} GiB of "
+                             f"host memory available, needs "
+                             f"{_TRAINER_HOST_BYTES / 2**30:.0f}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    row = {"phase": "trainer", "card": _nvidia_smi(),
+           "host_mem_available_gib": avail / 2**30,
+           "disk_free_gib": shutil.disk_usage(tmp).free / 2**30}
+    try:
+        if shutil.disk_usage(tmp).free < _TRAINER_DISK_BYTES:
+            raise AssertionError(f"trainer phase: {row['disk_free_gib']:.1f}"
+                                 f" GiB free under {tmp}")
+        rt.init(num_cpus=4, object_store_memory=_TRAINER_STORE_BYTES,
+                log_to_driver=False)
+        try:
+            t0 = time.time()
+            result = train.TorchTrainer(
+                CS.trainer_loop,
+                train_loop_config={
+                    "seed": seed,
+                    "marker": os.path.join(tmp, "failed_once")},
+                scaling_config=train.ScalingConfig(num_workers=1,
+                                                   use_gpu=True),
+                run_config=train.RunConfig(
+                    name="trainer", storage_path=tmp,
+                    checkpoint_config=train.CheckpointConfig(num_to_keep=1),
+                    failure_config=train.FailureConfig(
+                        max_failures=1))).fit()
+            row["fit_s"] = time.time() - t0
+            # fit's own spans, (start, end) in seconds on the driver's
+            # clock, in order of start
+            spans: dict = {}
+            for e in sorted(rt.tracing.timeline(), key=lambda e: e["ts"]):
+                if e["cat"] == "span" and e["name"].startswith("train."):
+                    spans.setdefault(e["name"][len("train."):], []).append(
+                        (e["ts"] / 1e6, (e["ts"] + e["dur"]) / 1e6))
+        finally:
+            rt.shutdown()
+        row["error"] = None if result.error is None else repr(result.error)
+        hist = result.metrics_history
+        ckpt_sums = None
+        if result.checkpoint is not None:
+            t0 = time.perf_counter()
+            tree, _ = result.checkpoint.to_pytree(device="cuda")
+            torch.cuda.synchronize()
+            row["driver_load_s"] = time.perf_counter() - t0
+            ckpt_sums = _leaf_checksums(tree)
+            del tree
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for _ in range(100):
+        left = _workers_left()
+        if not left:
+            break
+        time.sleep(0.1)
+    row["workers_left"] = left
+
+    steps = [m["step"] for m in hist]
+    first = [m for m in hist if not m["restart"]]
+    again = [m for m in hist if m["restart"]]
+    losses = [m["loss"] for m in first] + [m["loss"] for m in again[1:]]
+    ref = train_row["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    restart_rel = (abs(again[0]["loss"] - first[-1]["loss"])
+                   / abs(first[-1]["loss"]) if again and first
+                   else float("inf"))
+    starts = [m["start"] for m in hist if "start" in m]
+    ck = next((m for m in hist if "checksums" in m), None)
+    row.update({
+        "steps": steps, "losses": losses, "phase_train_losses": ref,
+        "rel_to_phase_train": rel,
+        "max_rel_to_phase_train": max(rel, default=float("inf")),
+        "restart_step_rel": restart_rel, "tol": _TRAINER_REL_TOL,
+        "launches_per_step": [m["launches"] for m in hist],
+        "launches_want": _TRAIN_LAUNCHES,
+        "leases": [{k: s[k] for k in ("gpu_ids", "cuda_visible_devices",
+                                      "device_count", "current_device",
+                                      "pid", "card_free_gib")}
+                   for s in starts],
+        "checksums_equal": ck is not None and ckpt_sums == ck["checksums"]})
+    if ck is not None and len(starts) == 2 and len(again) >= 2:
+        s0, s1 = starts
+        (start0, start0_end), (start1, _) = spans["executor_start"][:2]
+        reg = spans["checkpoint_register"][0]
+        down = spans["executor_shutdown"][0]
+        fail = next(m for m in first if "raise_t" in m)
+        gb = ck["ckpt_bytes"] / 1e9
+        walls = {m["step"]: m["wall_ms"] for m in first}
+        row["numbers"] = {
+            "worker_start_s": s0["ready_t"] - start0,
+            "worker_start_split_s": {
+                # negative: the runtime had started the process before
+                # the lease (a pooled worker)
+                "process_start_after_start": s0["process_start_t"] - start0,
+                "torch_import_and_cuda_context": start0_end - max(
+                    start0, s0["process_start_t"]),
+                "session_to_loop": s0["loop_entry_t"] - start0_end,
+                "port_imports_and_first_cuda_op": s0["imports_s"],
+                "kernel_libraries": s0["kernel_libraries_s"]},
+            "ms_per_step_steps_2_3": (walls[2] + walls[3]) / 2,
+            "first_step_ms": walls[1],
+            "phase_train_ms_per_step": train_row["ms_per_step"],
+            "peak_mem_gib": ck["peak_mem_gib"],
+            "checkpoint": {
+                "bytes": ck["ckpt_bytes"], "d2h_s": ck["d2h_s"],
+                "d2h_GB_per_s": gb / ck["d2h_s"],
+                "report_to_driver_s": reg[0] - ck["report_t"],
+                "report_GB_per_s": gb / (reg[0] - ck["report_t"]),
+                "to_directory_s": reg[1] - reg[0],
+                "to_directory_GB_per_s": gb / (reg[1] - reg[0])},
+            "restart": {
+                "to_first_step_s": again[0]["end_t"] - fail["raise_t"],
+                # the worker runs ahead of the driver's result pump: it can
+                # fail while the driver still takes in step 3's checkpoint
+                "driver_busy_after_failure_s": max(
+                    0.0, reg[1] - fail["raise_t"]),
+                "failure_seen_to_shutdown_s": down[0] - max(
+                    reg[1], fail["raise_t"]),
+                "from_shutdown_to_first_step_s": (again[0]["end_t"]
+                                                  - down[0]),
+                "executor_shutdown_s": down[1] - down[0],
+                "shutdown_to_new_start_s": start1 - down[1],
+                "new_worker_start_s": s1["ready_t"] - start1,
+                "to_pytree_read_s": s1["restore"]["read_s"],
+                "read_GB_per_s": gb / s1["restore"]["read_s"],
+                "h2d_s": s1["restore"]["h2d_s"],
+                "h2d_GB_per_s": gb / s1["restore"]["h2d_s"],
+                "first_step_ms": again[0]["wall_ms"]}}
+    checks = {
+        "no_error": result.error is None,
+        "lease": len(starts) == 2 and all(
+            s["gpu_ids"] == [0] and s["device_count"] == 1
+            and s["current_device"] == 0
+            and len((s["cuda_visible_devices"] or "").split(",")) == 1
+            and s["cuda_visible_devices"] != "" for s in starts),
+        "launches": bool(hist) and all(m["launches"] == _TRAIN_LAUNCHES
+                                       for m in hist),
+        "six_reports": steps == [1, 2, 3, _TRAINER_FAIL_STEP,
+                                 _TRAINER_FAIL_STEP, 5],
+        "losses_equal_phase_train": (len(losses) == len(ref) == _TRAIN_STEPS
+                                     and max(rel) <= _TRAINER_REL_TOL),
+        "restart_step_equal": restart_rel <= _TRAINER_REL_TOL,
+        "checkpoint_checksums": row["checksums_equal"],
+        "no_worker_left": not left}
+    row["checks"] = checks
+    row["ok"] = all(checks.values())
+    _emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"trainer phase failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return hist[0]["launches"]
 
 
 def _active_flops_per_token(cfg, seq: int) -> float:
@@ -2544,12 +2880,19 @@ def run(seed: int) -> int:
     dots_launches = attempt("train_dots", phase_train_dots, fa, T, TR, C,
                             params, seed)
     torch.cuda.empty_cache()
-    train_launches = attempt("train", phase_train, fa, T, TR, C, params,
-                             seed)
+    train_row = attempt("train", phase_train, fa, T, TR, C, params, seed)
+    # the driver's train state goes before the trainer's worker makes its
+    # own on the same card
+    del params
+    torch.cuda.empty_cache()
+    _emit({"driver_reserved_bytes": torch.cuda.memory_reserved()})
+    trainer_launches = attempt("trainer", phase_trainer, fa, T, TR, C, seed,
+                               train_row)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
 
+    train_launches = train_row["launches"]
     main = next(r for r in rows if r["case"] == "main")
     bwd_main = next(r for r in bwd_rows if r["case"] == "main")
     line = [{
@@ -2571,6 +2914,7 @@ def run(seed: int) -> int:
             "train_dots_step": dots_launches["flash_fwd"],
             "ring_forward": ring_launches["ring_forward"],
             "train_mesh_step": mesh_launches["flash_fwd"],
+            "trainer_step": trainer_launches["flash_fwd"],
             **_axis_launches(tensor_row, pipeline_row, "flash_fwd")}}]
     for name, line_no, source, err in (
             ("flash_bwd_dq", 87, "flash_bwd.cu", "dq_max_abs_err"),
@@ -2597,6 +2941,7 @@ def run(seed: int) -> int:
                     "ring_backward" if name == "flash_bwd_dq"
                     else "ring_backward_dkv"],
                 "train_mesh_step": mesh_launches[name],
+                "trainer_step": trainer_launches[name],
                 **_axis_launches(tensor_row, pipeline_row, name)}})
     _emit({"kernels": line})
     print(smi, flush=True)

@@ -9,9 +9,11 @@ attention, tensor, pipeline and expert axes), the entry points
 kernels, forward and backward (``ops``), which run as hand-written CUDA on
 the card and as their plain PyTorch versions on CPU tensors, and the
 runtime core (``core``: tasks, actors and the shared-memory object store,
-with GPU leases and torch tensors on the object plane), and Serve
+with GPU leases and torch tensors on the object plane), Serve
 (``serve``: deployments, handles, proxies and the LLM deployments on the
-port's engine). Entry points of
+port's engine), Train (``train``: ``TorchTrainer`` over a gang of worker
+actors in one ``torch.distributed`` group, checkpoints of torch train
+state, gang restart) and Tune (``tune``). Entry points of
 the model stack run on CUDA unless the caller passes ``device="cpu"``.
 
 Public core API mirrors the reference's (``ray.*``):
@@ -28,8 +30,8 @@ import importlib
 from ray_tpu_torch._version import __version__
 
 _SUBMODULES = ("models", "ops", "parallel", "entry", "interop", "core",
-               "serve", "tracing", "metrics", "profiling", "runtime_env",
-               "state", "trace_analysis", "usage_stats")
+               "serve", "train", "tune", "tracing", "metrics", "profiling",
+               "runtime_env", "state", "trace_analysis", "usage_stats")
 
 _API = ("ActorClass", "ActorHandle", "NodeAffinitySchedulingStrategy",
         "PlacementGroup", "PlacementGroupSchedulingStrategy",

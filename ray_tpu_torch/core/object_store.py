@@ -334,7 +334,13 @@ class ShmObjectStore:
         del probe
         _ARENAS[self._base] = (len(self._mmap), name)
         self._closed = False
-        self._lock = threading.Lock()
+        # Every call into the native handle checks _closed and runs under
+        # _lock, and close() destroys the handle under it: late daemon
+        # threads (the borrow reaper, GC grace timers, event flushers)
+        # calling in while the store closes would use-after-free it.
+        # RLock: an ObjectRef.__del__ fired by the GC inside a locked
+        # section can free, and so delete, through this store.
+        self._lock = threading.RLock()
         # Populate the arena's tmpfs pages + this process's PTEs in the
         # BACKGROUND, in bounded chunks, for creators AND attachers:
         # lazy faulting costs ~25k minor faults (+ kernel zeroing, for
@@ -386,26 +392,28 @@ class ShmObjectStore:
 
     def create(self, object_id: ObjectID, data_size: int, meta_size: int = 0
                ) -> memoryview:
-        # every native entry point checks _closed: shutdown destroys the
-        # C-side handle, and late daemon threads (GC grace timers, event
-        # flushers) calling in afterwards would use-after-free it
-        if self._closed:
-            raise ObjectStoreFullError(f"store {self.name} is closed")
         lib = get_lib()
-        off = lib.shm_store_create_object(
-            self._h, object_id.binary(), data_size, meta_size)
-        if off == -1:
-            raise ObjectExistsError(object_id.hex())
-        if off == 0:
-            # Try eviction, then retry once.
-            self.evict(data_size + meta_size)
+        with self._lock:
+            if self._closed:
+                raise ObjectStoreFullError(f"store {self.name} is closed")
             off = lib.shm_store_create_object(
                 self._h, object_id.binary(), data_size, meta_size)
-            if off <= 0:
-                raise ObjectStoreFullError(
-                    f"store {self.name} full: need {data_size + meta_size}, "
-                    f"in use {self.bytes_in_use()}/{self.capacity()}")
-        return memoryview(self._mmap)[off:off + data_size + meta_size]
+            if off > 0:
+                return memoryview(self._mmap)[off:off + data_size + meta_size]
+        if off == -1:
+            raise ObjectExistsError(object_id.hex())
+        # Try eviction, then retry once.
+        self.evict(data_size + meta_size)
+        with self._lock:
+            if self._closed:
+                raise ObjectStoreFullError(f"store {self.name} is closed")
+            off = lib.shm_store_create_object(
+                self._h, object_id.binary(), data_size, meta_size)
+            if off > 0:
+                return memoryview(self._mmap)[off:off + data_size + meta_size]
+        raise ObjectStoreFullError(
+            f"store {self.name} full: need {data_size + meta_size}, "
+            f"in use {self.bytes_in_use()}/{self.capacity()}")
 
     def seal(self, object_id: ObjectID):
         if self._closed:
@@ -418,30 +426,42 @@ class ShmObjectStore:
         # Relays that see state=="sealed" re-read through the pinned get
         # path (briefly polling for the native seal to land).
         self._finish_partial(object_id, sealed=True)
-        if get_lib().shm_store_seal(self._h, object_id.binary()) != 0:
+        with self._lock:
+            if self._closed:
+                return
+            rc = get_lib().shm_store_seal(self._h, object_id.binary())
+        if rc != 0:
             raise KeyError(f"seal failed for {object_id.hex()}")
 
     def get(self, object_id: ObjectID) -> Optional[Tuple[memoryview, memoryview]]:
         """Returns (data, metadata) views, pinning the object; None if absent."""
-        if self._closed:
-            return None
         out = (ctypes.c_uint64 * 3)()
-        rc = get_lib().shm_store_get(self._h, object_id.binary(), out)
-        if rc != 0:
-            return None
+        with self._lock:
+            if self._closed:
+                return None
+            if get_lib().shm_store_get(self._h, object_id.binary(), out):
+                return None
+            mv = memoryview(self._mmap)
         off, dsize, msize = out[0], out[1], out[2]
-        mv = memoryview(self._mmap)
         return mv[off:off + dsize], mv[off + dsize:off + dsize + msize]
 
     def contains(self, object_id: ObjectID) -> bool:
-        if self._closed:
-            return False
-        return get_lib().shm_store_contains(self._h, object_id.binary()) == 1
+        with self._lock:
+            if self._closed:
+                return False
+            return get_lib().shm_store_contains(
+                self._h, object_id.binary()) == 1
 
     def release(self, object_id: ObjectID):
-        if self._closed:
-            return
-        get_lib().shm_store_release(self._h, object_id.binary())
+        with self._lock:
+            if self._closed:
+                return
+            get_lib().shm_store_release(self._h, object_id.binary())
+
+    def _delete_native(self, object_id: ObjectID) -> bool:
+        with self._lock:
+            return not self._closed and get_lib().shm_store_delete(
+                self._h, object_id.binary()) == 0
 
     def delete(self, object_id: ObjectID) -> bool:
         if self._closed:
@@ -451,7 +471,7 @@ class ShmObjectStore:
         # touching the arena view BEFORE the slot is freed for reuse —
         # _finish_partial blocks on in-flight relay reads.
         self._finish_partial(object_id, sealed=False)
-        ok = get_lib().shm_store_delete(self._h, object_id.binary()) == 0
+        ok = self._delete_native(object_id)
         if not ok:
             # pinned — by a reader, or by the borrow ledger's extra pin
             # while zero-copy views are alive. If it's the ledger,
@@ -474,15 +494,15 @@ class ShmObjectStore:
                     # once so the delete isn't lost to that race
                     retry = True
             if retry:
-                ok = get_lib().shm_store_delete(
-                    self._h, object_id.binary()) == 0
+                ok = self._delete_native(object_id)
         return ok
 
     def evict(self, need: int) -> List[ObjectID]:
-        if self._closed:
-            return []
         buf = ctypes.create_string_buffer(_ID_SIZE * 256)
-        n = get_lib().shm_store_evict(self._h, need, buf, 256)
+        with self._lock:
+            if self._closed:
+                return []
+            n = get_lib().shm_store_evict(self._h, need, buf, 256)
         evicted = [
             ObjectID(buf.raw[i * _ID_SIZE:(i + 1) * _ID_SIZE]) for i in range(n)
         ]
@@ -494,19 +514,22 @@ class ShmObjectStore:
         return evicted
 
     def bytes_in_use(self) -> int:
-        if self._closed:
-            return 0
-        return get_lib().shm_store_bytes_in_use(self._h)
+        with self._lock:
+            if self._closed:
+                return 0
+            return get_lib().shm_store_bytes_in_use(self._h)
 
     def capacity(self) -> int:
-        if self._closed:
-            return 0
-        return get_lib().shm_store_capacity(self._h)
+        with self._lock:
+            if self._closed:
+                return 0
+            return get_lib().shm_store_capacity(self._h)
 
     def num_objects(self) -> int:
-        if self._closed:
-            return 0
-        return get_lib().shm_store_num_objects(self._h)
+        with self._lock:
+            if self._closed:
+                return 0
+            return get_lib().shm_store_num_objects(self._h)
 
     def memory_stats(self) -> Dict[str, int]:
         """Arena accounting snapshot — one native call (single lock
@@ -522,10 +545,11 @@ class ShmObjectStore:
         ``borrow_pinned_count`` / ``borrow_pinned_bytes`` (zero-copy
         views alive in THIS process) / ``deferred_deletes`` (pending) /
         ``deferred_delete_oldest_s`` (age of the oldest one)."""
-        if self._closed:
-            return {}
         out = (ctypes.c_uint64 * 11)()
-        get_lib().shm_store_memory_stats(self._h, out)
+        with self._lock:
+            if self._closed:
+                return {}
+            get_lib().shm_store_memory_stats(self._h, out)
         borrow_count = borrow_bytes = 0
         deferred = 0
         oldest = 0.0
@@ -561,11 +585,12 @@ class ShmObjectStore:
         data+meta bytes)]`` — the holder report a re-registering node
         agent ships so a restarted head can rebuild its object directory
         from holder truth (the directory is deliberately not WAL'd)."""
-        if self._closed:
-            return []
         ids = ctypes.create_string_buffer(_ID_SIZE * max_objects)
         sizes = (ctypes.c_uint64 * max_objects)()
-        n = get_lib().shm_store_list(self._h, ids, sizes, max_objects)
+        with self._lock:
+            if self._closed:
+                return []
+            n = get_lib().shm_store_list(self._h, ids, sizes, max_objects)
         return [(ObjectID(ids.raw[i * _ID_SIZE:(i + 1) * _ID_SIZE]),
                  int(sizes[i])) for i in range(n)]
 
@@ -727,8 +752,10 @@ class ShmObjectStore:
             # the ledger's own pin (independent of the caller's read
             # pin): bump the native refcount, drop the views
             out = (ctypes.c_uint64 * 3)()
-            if get_lib().shm_store_get(self._h, object_id.binary(),
-                                       out) == 0:
+            with self._lock:
+                pinned = not self._closed and get_lib().shm_store_get(
+                    self._h, object_id.binary(), out) == 0
+            if pinned:
                 self.borrow_pins_taken += 1
             else:  # entry vanished between get_frames' get and here
                 with self._borrow_lock:
@@ -775,9 +802,9 @@ class ShmObjectStore:
                         continue
                     del self._borrows[object_id]
                     do_delete = entry.deferred_delete
+                self.release(object_id)
                 if self._closed:
                     return
-                self.release(object_id)
                 if do_delete:
                     # plain native delete: the entry is sealed (no
                     # partial can exist) and delete() would re-consult
@@ -788,12 +815,9 @@ class ShmObjectStore:
                     # free/eviction paths (same contract as the
                     # owner-free local-delete optimization).
                     for _ in range(5):
-                        if get_lib().shm_store_delete(
-                                self._h, object_id.binary()) == 0:
+                        if self._delete_native(object_id) or self._closed:
                             break
                         time.sleep(0.01)
-                        if self._closed:
-                            return
             finally:
                 with self._borrow_lock:
                     self._borrow_reap_busy.discard(me)
@@ -829,8 +853,9 @@ class ShmObjectStore:
         for p in parts:
             p.finish(sealed=False)
         # _lock serializes against an in-flight background populate
-        # chunk: munmap under a concurrent madvise would be a
-        # use-after-free of the mapping
+        # chunk (munmap under a concurrent madvise would be a
+        # use-after-free of the mapping) and every native call: the
+        # handle is destroyed under it
         with self._lock:
             if self._closed:
                 return
@@ -840,11 +865,11 @@ class ShmObjectStore:
                 self._mmap.close()
             except BufferError:
                 pass  # zero-copy views still alive; leave the map
-        lib = get_lib()
-        if self._creator:
-            lib.shm_store_destroy(self._h, self._cname)
-        else:
-            lib.shm_store_detach(self._h)
+            lib = get_lib()
+            if self._creator:
+                lib.shm_store_destroy(self._h, self._cname)
+            else:
+                lib.shm_store_detach(self._h)
 
     def __del__(self):
         try:

@@ -7,6 +7,10 @@ reach numpy with the dtype named ``bfloat16`` (an ``ml_dtypes`` type that
 view, and are reinterpreted as ``torch.bfloat16``, without importing
 ``ml_dtypes``.
 
+``train_state_from_numpy`` carries a whole train state across (step,
+params and the Adam moments from inside optax's chain state), so a JAX run
+can be resumed in the port.
+
 ``shard_params`` and ``shard_state`` place such params, or a whole train
 state, on a mesh as DTensors: each rank passes the same global values and
 keeps its own shards, so both sides of a parity test start from the same
@@ -28,7 +32,8 @@ def tensor_from_numpy(arr, device=None) -> torch.Tensor:
     """One numpy array (bf16 included) -> a tensor with the same values."""
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
-        bits = np.ascontiguousarray(arr).view(np.uint16)
+        # ascontiguousarray makes a 0-d array 1-d: reshape it back
+        bits = np.ascontiguousarray(arr).view(np.uint16).reshape(arr.shape)
         t = torch.from_numpy(bits.copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(arr, copy=True))
@@ -63,6 +68,46 @@ def params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig,
         return out
 
     return convert(tree, want, "")
+
+
+def _adam_state(node):
+    """optax's ``ScaleByAdamState`` (count, mu, nu) inside a chain's state
+    (nested tuples, as numpy), found without importing optax; None if
+    absent."""
+    fields = getattr(node, "_fields", None)
+    if fields is not None and {"count", "mu", "nu"} <= set(fields):
+        return node._asdict()
+    if not isinstance(node, (tuple, list)):
+        return None
+    for child in node:
+        found = _adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def train_state_from_numpy(state: Dict[str, Any], cfg: TransformerConfig,
+                           device=None) -> Dict[str, Any]:
+    """The reference's train state as numpy (``{"step", "params",
+    "opt_state"}``, the opt state that of its ``make_optimizer``:
+    ``chain(clip_by_global_norm, adamw)``) -> the port's
+    (``training.TrainState``: ``opt_state`` is ``{"count", "mu", "nu"}``),
+    on ``device`` (CUDA unless the caller asks for the CPU). The clip and
+    the other links of the chain keep no state the port needs: a schedule's
+    count equals Adam's."""
+    dev = resolve_device(device)
+    adam = _adam_state(state["opt_state"])
+    if adam is None:
+        raise ValueError("opt_state holds no Adam state (count, mu, nu)")
+
+    def count(x):
+        return tensor_from_numpy(np.asarray(x, dtype=np.int32), dev)
+
+    return {"step": count(state["step"]),
+            "params": params_from_numpy(state["params"], cfg, dev),
+            "opt_state": {"count": count(adam["count"]),
+                          "mu": params_from_numpy(adam["mu"], cfg, dev),
+                          "nu": params_from_numpy(adam["nu"], cfg, dev)}}
 
 
 def _place(tree, placements, mesh):

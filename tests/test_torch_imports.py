@@ -31,7 +31,11 @@ def test_port_imports_no_jax_and_no_reference_package():
             "ray_tpu_torch.models.training", "ray_tpu_torch.core.head",
             "ray_tpu_torch.core.api", "ray_tpu_torch.core.serialization",
             "ray_tpu_torch.core.worker_main",
-            "ray_tpu_torch.native.build"} <= set(mods)
+            "ray_tpu_torch.native.build", "ray_tpu_torch.train",
+            "ray_tpu_torch.train.backend", "ray_tpu_torch.train.checkpoint",
+            "ray_tpu_torch.train.trainer", "ray_tpu_torch.tune",
+            "ray_tpu_torch.tune.execution",
+            "ray_tpu_torch.tune.external_search"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -56,10 +60,12 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 def test_runtime_entry_points_load_no_torch():
     """A worker process (python -m ray_tpu_torch.core.worker_main), a
-    driver that imports the runtime API, and Serve's controller, replica
-    and proxies (actors that never touch a model) load no torch: the
-    package's names load on first access, and the LLM deployments import
-    torch inside their replicas."""
+    driver that imports the runtime API, Serve's controller, replica and
+    proxies (actors that never touch a model), and Train and Tune (a
+    trainer, its workers' actor class, the backend, checkpoints, a tuner)
+    load no torch: the package's names load on first access, the LLM
+    deployments import torch inside their replicas, and a train worker
+    when its backend or its loop needs it."""
     code = (
         "import json, sys\n"
         "import ray_tpu_torch\n"
@@ -69,6 +75,13 @@ def test_runtime_entry_points_load_no_torch():
         "from ray_tpu_torch.serve import controller, replica, http_proxy\n"
         "from ray_tpu_torch.serve import grpc_proxy, router, llm\n"
         "serve.deployment(lambda x: x)\n"
+        "from ray_tpu_torch import train, tune\n"
+        "from ray_tpu_torch.train import backend, checkpoint, worker_group\n"
+        "from ray_tpu_torch.tune import execution, external_search\n"
+        "train.TorchTrainer(lambda: None,\n"
+        "                   scaling_config=train.ScalingConfig(use_gpu=True))\n"
+        "train.Checkpoint.from_dict({'a': 1})\n"
+        "tune.Tuner(lambda config: None, param_space={})\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'torch'"
         " or m.startswith('torch.') or m == 'jax')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
@@ -86,7 +99,8 @@ def no_cuda(monkeypatch):
 def test_entry_points_without_device_raise_instead_of_using_cpu(no_cuda):
     import numpy as np
 
-    from ray_tpu_torch.interop import params_from_numpy, tensor_from_numpy
+    from ray_tpu_torch.interop import (params_from_numpy, tensor_from_numpy,
+                                       train_state_from_numpy)
     from ray_tpu_torch.models.config import tiny_config
     from ray_tpu_torch.models.engine import InferenceEngine
     from ray_tpu_torch.models.training import init_train_state, make_optimizer
@@ -108,6 +122,10 @@ def test_entry_points_without_device_raise_instead_of_using_cpu(no_cuda):
             for k, v in params.items()}
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         params_from_numpy(tree, cfg)
+    opt = {"count": np.zeros((), np.int32), "mu": tree, "nu": tree}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_state_from_numpy({"step": np.zeros((), np.int32),
+                                "params": tree, "opt_state": opt}, cfg)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

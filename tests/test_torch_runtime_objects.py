@@ -423,6 +423,69 @@ def test_tensor_payload_equals_the_reference_jax_array(dtype):
     assert bytes(ours.frames[1]) == bytes(theirs.frames[1])
 
 
+def _close_during_slow_native(name, setup, trigger):
+    """In a child process, so that a crash fails the test alone: the
+    native ``name`` sleeps 0.2 s before it runs, ``trigger`` starts a call
+    of it, and close() follows 0.05 s later, while that call is inside its
+    sleep. close() must wait for it rather than destroy the handle under
+    it (a use-after-free: a segfault)."""
+    code = (
+        "import threading, time, torch\n"
+        "from ray_tpu_torch.core import object_store as S, serialization\n"
+        "from ray_tpu_torch.core.ids import ObjectID\n"
+        "lib = S.get_lib()\n"
+        "class Slow:\n"
+        "    def __getattr__(self, attr):\n"
+        "        fn = getattr(lib, attr)\n"
+        f"        if attr != {name!r}:\n"
+        "            return fn\n"
+        "        def slow(*args):\n"
+        "            time.sleep(0.2)\n"
+        "            return fn(*args)\n"
+        "        return slow\n"
+        "s = S.ShmObjectStore(f'rtpu_tc_{ObjectID.from_random().hex()[:8]}',"
+        " 8 << 20, create=True)\n"
+        "oid = ObjectID.from_random()\n"
+        "t = torch.arange(1000, dtype=torch.uint8)\n"
+        "s.put_serialized(oid, serialization.serialize(t).frames)\n"
+        + setup +
+        "S.get_lib = Slow\n"
+        + trigger +
+        "time.sleep(0.05)\n"
+        "s.close()\n"
+        "time.sleep(0.3)\n"
+        "print('closed')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(_ROOT)})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "closed"
+
+
+def test_close_waits_for_a_release_in_flight():
+    """The borrow reaper releases the ledger's pin when an object's last
+    zero-copy view dies. A view that dies just before close() used to let
+    that release land on the handle close() had destroyed, which crashed
+    the process (a segfault in the reaper thread, seen under the suite's
+    load)."""
+    _close_during_slow_native(
+        "shm_store_release",
+        "frames = s.get_frames(oid, pin_borrows=True)\n"
+        "out = serialization.deserialize(frames)\n"
+        "assert torch.equal(out, t)\n"
+        "del frames\n"
+        "lib.shm_store_release(s._h, oid.binary())\n",
+        "del out  # the last view: the reaper starts its release\n")
+
+
+def test_close_waits_for_a_delete_in_flight():
+    """A delete() on another thread (a free, a GC grace timer) that is
+    inside the native call when close() runs."""
+    _close_during_slow_native(
+        "shm_store_delete", "",
+        "threading.Thread(target=s.delete, args=(oid,)).start()\n")
+
+
 # ------------------------------------------------------- without cloudpickle
 
 

@@ -1,12 +1,12 @@
 """Rank functions of the port's multi-process tests (tests/test_torch_ring.py,
 tests/test_torch_parallel_train.py, tests/test_torch_tensor_parallel.py,
 tests/test_torch_pipeline.py, tests/test_torch_moe_parallel.py,
-tests/test_torch_engine_mesh_serve.py).
+tests/test_torch_engine_mesh_serve.py, tests/test_torch_train_checkpoint.py).
 
-Each runs in every rank of an 8-rank gloo world started by
-``ray_tpu_torch.parallel.world.run_world``, computes every case of its test
-module on the port, and returns plain numpy results; the test process
-compares them with the JAX package's. This module imports no JAX: the ranks
+Each runs in every rank of a gloo world (8 ranks; 2 for the checkpoint's)
+started by ``ray_tpu_torch.parallel.world.run_world``, computes every case
+of its test module on the port, and returns plain numpy results; the test
+process compares them with the JAX package's. This module imports no JAX: the ranks
 are forked from a server that has only torch and the port loaded.
 """
 
@@ -451,3 +451,29 @@ def replica_del_reaps_followers(results) -> None:
     out["alive_after_del"] = [p.is_alive() for p in procs]
     out["world_left"] = torch.distributed.is_initialized()
     results.put(out)
+
+
+def checkpoint_rank(rank: int, params_np: dict, directory: str):
+    """tests/test_torch_train_checkpoint.py: a tiny bf16 train state from
+    ``params_np`` placed on make_mesh(fsdp=2) (params and moments as
+    DTensors), through ``Checkpoint.from_pytree`` on every rank (each
+    DTensor gathered whole, a collective); rank 0 also writes it to
+    ``directory``. -> each leaf's bits as numpy, in tree_leaves order."""
+    from ray_tpu_torch.train import Checkpoint
+
+    cfg = C.tiny_config(param_dtype=torch.bfloat16)
+    tx = TR.make_optimizer(1e-3, mu_dtype=torch.bfloat16)
+    mesh = MeshSpec(fsdp=2).build("cpu")
+    params = params_from_numpy(params_np, cfg, "cpu")
+    state = shard_state(mesh, {"step": torch.tensor(3, dtype=torch.int32),
+                               "params": params,
+                               "opt_state": tx.init(params)}, cfg, tx)
+    sharded = [type(x).__name__ for x in TR.tree_leaves(state)]
+    ckpt = Checkpoint.from_pytree(state, rank=rank)
+    if rank == 0:
+        ckpt.to_directory(directory)
+    tree, extra = ckpt.to_pytree()
+    return {"sharded": sharded, "extra": extra,
+            "leaves": [x.view(torch.int16).numpy()
+                       if x.dtype == torch.bfloat16 else x.numpy()
+                       for x in TR.tree_leaves(tree)]}
