@@ -121,9 +121,34 @@ phase:
             the worker's start split, ms per step, peak memory, the
             checkpoint's bytes and seconds (device to host, the report to
             the driver, the write) and the restart's split
+  train_pipeline  the train cell as the port's MPMD pipeline
+            (ray_tpu_torch.train.Pipeline) on a cluster_utils.Cluster whose
+            head has no GPU and whose four logical nodes each declare one
+            (all lease the card as GPU 0): 4 num_gpus=1 stage actors of 4
+            layers (LlamaStage: the embedding on the first, the final norm
+            and the tied head on the last; the table and the head are two
+            stage params), 4 microbatches of [1, 2048], GPipe then 1F1B on
+            one set of actors; elastic checkpoints off. Then 2 stages of 8
+            layers x 2 replicas (1F1B), one replica a node, whose bf16 CUDA
+            grads sum through ray_tpu_torch.collective. Checks: every stage
+            actor leases GPU 0 and sees one device; GPipe's and 1F1B's
+            loss and each stage's grads within 1e-6 relative of
+            single_program_reference run here on the card, folding the
+            microbatches in the schedule's backward order (expected
+            bitwise), the two embedding copies each; B1/B2/B3 16/16/16 a
+            batch in each stage actor (4 layers x 4 microbatches, and 8 x 2
+            in the 2 x 2 run), counted there and read through probe(); the
+            2 x 2 run's grads within _TPIPE_DP_BOUND of its oracle, per
+            element, and its two replicas' grads equal bit for bit; no
+            activation through the driver; no worker left. Numbers: the
+            batch wall of each run, each stage's fwd/bwd exec, sched_wait
+            (the bubble) and arg_fetch (the hop) from the phase rows, the
+            stage actors' start, the grads' fetch, the oracle's wall, the
+            card's peak use, the 2 x 2 run's all-reduce seconds, the
+            embedding copies' sum against phase train's tied gradient
 
-After each phase a line {"phase_wall": name, "s": seconds}. Then the
-kernel summary line, the card's nvidia-smi line, and as the last
+After each phase a line {"phase_wall": name, "s": seconds}, after the last
+the script's wall ({"script_wall_s": ...}). Then the kernel summary line, the card's nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failure exits non-zero before that
 line. Without a CUDA device it exits non-zero at once.
 """
@@ -288,6 +313,28 @@ _SERVE_WARMUP_LENS = (8, 16, 24, 32, 40, 48, 56, 64)
 _AXIS_LAUNCHES = {
     "forward": {"flash_fwd": 64, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
     "train": {"flash_fwd": 128, "flash_bwd_dq": 64, "flash_bwd_dkv": 64}}
+
+# train_pipeline: the train cell as an MPMD pipeline of stage actors
+# (ray_tpu_torch.train.pipeline) on logical nodes of a cluster_utils.Cluster
+# that each declare the one card. 4 stages of 4 layers (no remat inside a
+# stage: B1 runs once a layer and microbatch, so each stage launches B1, B2
+# and B3 exactly 4 x 4 = 16 times a batch), 4 microbatches of [1, 2048].
+# GPipe and 1F1B against single_program_reference on the card: the same
+# kernels on the same inputs, and a stage folds each microbatch's grads as
+# its backward runs, so the oracle that folds in the schedule's backward
+# order (reversed for GPipe) is expected equal bit for bit; 1e-6 relative is
+# the bar. 2 stages x 2 replicas (here and in the 4-card test): each
+# replica sums its two microbatches' bf16 grads, the collective adds the
+# two sums (bf16), the oracle adds the four in turn. Both are sums of the same four terms, with
+# unit roundoff u = 2^-8 per bf16 add: 2 adds' worth (2u sum|g_i|) against
+# 3 (3u sum|g_i|), so per element |dp - oracle| <= 5u sum_i|g_i| / M to
+# first order; 1.05 of that is the bar (written before the first run).
+_TPIPE_STAGES, _TPIPE_MICRO, _TPIPE_LAYERS = 4, 4, 4
+_TPIPE_REL_TOL = 1e-6
+_TPIPE_LAUNCHES = {"flash_fwd": 16, "flash_bwd_dq": 16, "flash_bwd_dkv": 16}
+_TPIPE_DP_BOUND = 1.05 * 5 * 2.0 ** -8
+_TPIPE_HEAD_STORE = 8 << 30
+_TPIPE_NODE_STORE = 8 << 30
 
 
 def _emit(obj):
@@ -2348,6 +2395,414 @@ def phase_trainer(fa, T, TR, C, seed: int, train_row):
     return hist[0]["launches"]
 
 
+class LlamaStage:
+    """One pipeline stage of the llama3-1b train cell, the ``fn`` of a
+    ``PipelineStage``: the embedding (first stage), ``n_layers`` decoder
+    layers without remat, the final norm and the tied LM head in fp32
+    (last stage), from the port's model pieces. The tied embedding is two
+    stage params: the first stage's ``embed`` and the last stage's
+    ``head``. Referenced as ``chip_smoke.LlamaStage``, so it pickles by
+    reference."""
+
+    def __init__(self, cfg, first: bool, last: bool, n_layers: int):
+        self.cfg = dataclasses.replace(cfg, n_layers=n_layers, remat=False)
+        self.first, self.last = first, last
+
+    def __call__(self, p, x):
+        import torch
+
+        from ray_tpu_torch.models import transformer as T
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = self.cfg
+        if self.first:
+            x = T.embed_tokens({"embed": p["embed"]}, x, cfg)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, _ = T._layers([p["layers"]], x, cfg, positions)
+        if self.last:
+            x = T.lm_head({"embed": p["head"],
+                           "final_norm": p["final_norm"]}, x, cfg)
+        return x
+
+
+def stage_loss(logits, targets):
+    """Phase train's loss on a microbatch: the mean next-token cross
+    entropy, logsumexp minus the gold logit (the port's loss_fn)."""
+    import torch
+
+    t = targets.to(logits.device).long()
+    gold = torch.gather(logits, -1, t[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).mean()
+
+
+def llama_stages(PL, params, cfg, n_stages: int) -> list:
+    """The decoder's params split into ``n_stages`` PipelineStages of
+    LlamaStage, each stage's leaves its own copies (the first stage the
+    table, the last the head and final norm)."""
+    import chip_smoke as CS  # by reference, not as __main__
+
+    per = cfg.n_layers // n_stages
+    stages = []
+    for k in range(n_stages):
+        p = {"layers": {n: w[k * per:(k + 1) * per].clone()
+                        for n, w in params["layers"].items()}}
+        if k == 0:
+            p["embed"] = params["embed"].clone()
+        if k == n_stages - 1:
+            p["head"] = params["embed"].clone()
+            p["final_norm"] = params["final_norm"].clone()
+        stages.append(PL.PipelineStage(
+            fn=CS.LlamaStage(cfg, k == 0, k == n_stages - 1, per),
+            params=p))
+    return stages
+
+
+def abs_grad_sum(PL, stages, mbs, tgts) -> list:
+    """sum_i |g_i| per element (fp32), g_i each microbatch's grads alone by
+    single_program_reference, as [stage][leaf]: the scale of the 2 x 2 run's
+    bound."""
+    absum = None
+    for x, t in zip(mbs, tgts):
+        _, gi = PL.single_program_reference(stages, stage_loss, [x], [t])
+        a = [[g.float().abs() for g in PL._tree_leaves(s)] for s in gi]
+        absum = a if absum is None else [
+            [u + v for u, v in zip(su, sv)] for su, sv in zip(absum, a)]
+        del gi, a
+    return absum
+
+
+def dp_over_bound(PL, grads, ref_grads, absum, M: int):
+    """(elements of the data-parallel grads further from the oracle's than
+    _TPIPE_DP_BOUND * sum_i|g_i| / M, the largest error over its bound)."""
+    over, worst = 0, 0.0
+    for g, r, a in zip(grads, ref_grads, absum):
+        for x, y, s in zip(PL._tree_leaves(g), PL._tree_leaves(r), a):
+            d = (x.float() - y.float().to(x.device)).abs()
+            bound = _TPIPE_DP_BOUND * s.to(x.device) / M
+            over += int((d > bound).sum().item())
+            worst = max(worst, (d / bound.clamp(min=1e-30)).max().item())
+    return over, worst
+
+
+def _phase_rows(state, prefix: str, funcs, want: int) -> dict:
+    """Each ``{prefix}{func}``'s phase rows (count, mean_ms, p50/p95 of
+    sched_wait, dispatch, arg_fetch, exec, ...), polled until every one
+    has ``want`` completed execs (the stage workers flush their events on
+    their own cadence)."""
+    names = [prefix + f for f in funcs]
+    t_end = time.monotonic() + 30
+    while True:
+        rows = state.phase_summary(names)
+        if all(rows.get(n, {}).get("exec", {}).get("count", 0) >= want
+               for n in names) or time.monotonic() > t_end:
+            return {f: rows.get(prefix + f, {}) for f in funcs}
+        time.sleep(0.5)
+
+
+@contextlib.contextmanager
+def _card_memory():
+    """The card's most used bytes over all its processes while the block
+    runs (torch.cuda.mem_get_info every 0.1 s), in a one-item list."""
+    import torch
+
+    used, stop = [0], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            free, total = torch.cuda.mem_get_info()
+            used[0] = max(used[0], total - free)
+            stop.wait(0.1)
+
+    th = threading.Thread(target=sample, daemon=True)
+    th.start()
+    try:
+        yield used
+    finally:
+        stop.set()
+        th.join()
+
+
+def _arenas(state) -> dict:
+    """Each node's object-store arena, GiB: used now, the high-water mark
+    and the capacity (the nodes' last heartbeats)."""
+    out = {}
+    for idx, n in state.memory_summary().get("nodes", {}).items():
+        a = n.get("arena", {})
+        out[idx] = [round(a.get(k, 0) / 2**30, 3) for k in (
+            "used_bytes", "highwater_bytes", "capacity")]
+    return out
+
+
+def _mean_ms(row: dict, phase: str):
+    return row.get(phase, {}).get("mean_ms")
+
+
+def _bitwise_tree(xs, refs) -> bool:
+    import torch
+
+    return all(torch.equal(x, r) for x, r in zip(xs, refs))
+
+
+def _tpipe_dp_run(PL, params, cfg, mbs, tgts, checks: dict) -> dict:
+    """Phase train_pipeline's 2 stages x 2 replicas (8 layers a stage,
+    1F1B, each replica two of the four microbatches) on the cluster's four
+    logical nodes: the replicas' bf16 CUDA grads sum through
+    ray_tpu_torch.collective (the chunked ring on the object plane). Adds
+    its checks to ``checks``; returns its row."""
+    import torch
+
+    import chip_smoke as CS  # by reference, not as __main__
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import state
+    from ray_tpu_torch.core.context import get_context
+
+    M = len(mbs)
+    stages = llama_stages(PL, params, cfg, 2)
+    t0 = time.perf_counter()
+    dp = PL.Pipeline(stages, loss_fn=CS.stage_loss, schedule="1f1b",
+                     replicas_per_stage=2, placement="auto",
+                     name_prefix="dp_")
+    probes = dp.probe()
+    start_s = time.perf_counter() - t0
+    del stages
+    dp.reset()
+    ctx = get_context()
+    promoted0 = len(ctx._inline_promoted)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = dp.run_batch(mbs, tgts)
+    wall = time.perf_counter() - t0
+    launches = [p["kernel_launches"] for p in dp.probe()]
+    promoted = len(ctx._inline_promoted) - promoted0
+    grads = dp.grads()
+    others = rt.get([dp.actors[k * 2 + 1].grads.remote(True)
+                     for k in range(2)], timeout=600)
+    rows = _phase_rows(state, "dp_", [
+        f"stage{k}r{r}.{op}" for k in range(2) for r in range(2)
+        for op in ("fwd", "bwd")], M // 2)
+    ar = _phase_rows(state, "dp_", [
+        f"stage{k}r{r}.allreduce" for k in range(2) for r in range(2)], 1)
+    allreduces = dp.grad_allreduces
+    dp.shutdown()
+    del dp
+    # the oracle and the bound's scale once the four actors have left the
+    # card (they share it with this process)
+    torch.cuda.empty_cache()
+    stages = llama_stages(PL, params, cfg, 2)
+    ref_loss, ref = PL.single_program_reference(stages, CS.stage_loss, mbs,
+                                                tgts)
+    absum = abs_grad_sum(PL, stages, mbs, tgts)
+    del stages
+    over, worst = dp_over_bound(PL, grads, ref, absum, M)
+    d = {"stages": 2, "replicas_per_stage": 2, "bound": _TPIPE_DP_BOUND,
+         "stage_actors_start_s": start_s,
+         "leases": [(p["node_idx"], p["gpu_ids"], p["cuda_devices"])
+                    for p in probes],
+         "batch_wall_s": wall, "loss": out["loss"],
+         "loss_rel": abs(out["loss"] - ref_loss) / abs(ref_loss),
+         "grad_rel": [_tree_rel(PL._tree_leaves(g), PL._tree_leaves(r))
+                      for g, r in zip(grads, ref)],
+         "elements_over_bound": over, "worst_err_over_bound": worst,
+         "replicas_bitwise": all(_bitwise_tree(
+             PL._tree_leaves(g), PL._tree_leaves(h))
+             for g, h in zip(grads, others)),
+         "launches": launches, "inline_promoted": promoted,
+         "allreduce_s": {f: (_mean_ms(r, "exec") or 0) / 1e3
+                         for f, r in ar.items()},
+         "stage_ms": {f: {ph: _mean_ms(r, ph) for ph in (
+             "exec", "sched_wait", "arg_fetch")} for f, r in rows.items()},
+         "grad_allreduces": allreduces}
+    del grads, others, absum, ref
+    torch.cuda.empty_cache()
+    checks["dp_one_replica_per_node"] = len(
+        {p[0] for p in d["leases"]}) == 4
+    checks["dp_leases"] = all(p[1] == [0] and p[2] == 1
+                              for p in d["leases"])
+    checks["dp_loss"] = d["loss_rel"] <= _TPIPE_REL_TOL
+    checks["dp_grads_in_bound"] = over == 0
+    checks["dp_replicas_bitwise"] = d["replicas_bitwise"]
+    # 8 layers x 2 microbatches in each replica: 16 each, as 4 x 4
+    checks["dp_launches"] = launches == [_TPIPE_LAUNCHES] * 4
+    checks["dp_by_ref"] = promoted == 0
+    checks["dp_synced_once"] = d["grad_allreduces"] == 1
+    return d
+
+
+def phase_train_pipeline(fa, T, TR, C, seed: int):
+    """The train cell as an MPMD pipeline of stage actors (the module's
+    docstring, train_pipeline). Returns the launches of one batch summed
+    over the four stage actors."""
+    import torch
+
+    import chip_smoke as CS  # by reference, not as __main__
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import state
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.core.config import get_config
+    from ray_tpu_torch.core.context import get_context
+    from ray_tpu_torch.train import pipeline as PL
+
+    cfg = train_config(C)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(seed),
+                           _llama_bf16(), device="cuda")
+    batch = train_batch(cfg, seed + 3)
+    M = _TPIPE_MICRO
+    mbs = [batch["inputs"][i:i + 1] for i in range(M)]
+    tgts = [batch["targets"][i:i + 1] for i in range(M)]
+    row = {"phase": "train_pipeline", "card": _nvidia_smi(),
+           "config": "llama3-1b", "stages": _TPIPE_STAGES,
+           "layers_per_stage": _TPIPE_LAYERS, "microbatches": M,
+           "microbatch": [1, 2048], "dtype": "bfloat16",
+           "remat_in_stage": False, "rel_tol": _TPIPE_REL_TOL,
+           "elastic_checkpoints": False}
+
+    # phase train's tied gradient: the whole batch through loss_fn (remat)
+    names = _leaf_names(params)
+    loss_whole, grads = _grads(T, TR, params, batch, cfg)
+    tied = grads[names.index("embed")].float().cpu()  # off the card
+    del grads
+    torch.cuda.empty_cache()
+
+    # the oracle on the card, with the same stage functions
+    stages = llama_stages(PL, params, cfg, _TPIPE_STAGES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_loss, ref_grads = PL.single_program_reference(
+        stages, CS.stage_loss, mbs, tgts)
+    torch.cuda.synchronize()
+    row["oracle_s"] = time.perf_counter() - t0
+    # a stage folds each microbatch's grads as its backward runs: GPipe's
+    # run in reverse, so its oracle folds the microbatches in reverse
+    _, rev_grads = PL.single_program_reference(
+        stages, CS.stage_loss, mbs[::-1], tgts[::-1])
+    torch.cuda.empty_cache()
+    row["oracle_loss"] = ref_loss
+    row["whole_batch_loss"] = loss_whole.item()
+    oracles = {"1f1b": ref_grads, "gpipe": rev_grads}
+    del ref_grads, rev_grads  # each leaves the card after its schedule
+
+    # a GPU-less head and logical nodes of one GPU each: every stage
+    # leases the card as GPU 0
+    cluster = Cluster(head_node_args={
+        "num_cpus": 4, "num_gpus": 0,
+        "object_store_memory": _TPIPE_HEAD_STORE, "log_to_driver": False,
+        "_system_config": {"pipeline_checkpoint_every_waves": 0}})
+    ctx = get_context()
+    checks = {}
+    try:
+        for _ in range(_TPIPE_STAGES):
+            cluster.add_node(num_cpus=2, num_gpus=1,
+                             object_store_memory=_TPIPE_NODE_STORE)
+        t0 = time.perf_counter()
+        pipe = PL.Pipeline(stages, loss_fn=CS.stage_loss, placement="auto")
+        probes = pipe.probe()
+        row["stage_actors_start_s"] = time.perf_counter() - t0
+        row["stage_leases"] = [{k: p[k] for k in (
+            "stage", "node_idx", "gpu_ids", "device", "cuda_devices")}
+            for p in probes]
+        checks["one_stage_per_node"] = len(
+            {p["node_idx"] for p in probes}) == _TPIPE_STAGES
+        checks["stage_leases"] = all(
+            p["gpu_ids"] == [0] and p["cuda_devices"] == 1
+            and p["device"] == "cuda" for p in probes)
+        del stages
+        runs = {}
+        for sched in ("gpipe", "1f1b"):
+            pipe.schedule, pipe.name_prefix = sched, f"{sched}_"
+            oracle = oracles.pop(sched)
+            ref_leaves = [PL._tree_leaves(g) for g in oracle]
+            pipe.reset()  # grads and the stages' launch counters to 0
+            promoted0 = len(ctx._inline_promoted)
+            torch.cuda.synchronize()
+            with _card_memory() as used:
+                t0 = time.perf_counter()
+                out = pipe.run_batch(mbs, tgts)
+                wall = time.perf_counter() - t0
+            launches = [p["kernel_launches"] for p in pipe.probe()]
+            promoted = len(ctx._inline_promoted) - promoted0
+            t0 = time.perf_counter()
+            grads = pipe.grads()
+            fetch_s = time.perf_counter() - t0
+            leaves = [PL._tree_leaves(g) for g in grads]
+            embed = (grads[0]["embed"].float()
+                     + grads[-1]["head"].float())
+            rows = _phase_rows(state, f"{sched}_", [
+                f"stage{k}.{op}" for k in range(_TPIPE_STAGES)
+                for op in ("fwd", "bwd")], M)
+            run = {
+                "batch_wall_s": wall, "grads_fetch_s": fetch_s,
+                "card_used_gib_max": used[0] / 2**30,
+                "loss": out["loss"],
+                "loss_rel": abs(out["loss"] - ref_loss) / abs(ref_loss),
+                "loss_bitwise": out["loss"] == ref_loss,
+                "grad_rel": [_tree_rel(g, r)
+                             for g, r in zip(leaves, ref_leaves)],
+                "grad_bitwise": [_bitwise_tree(g, r)
+                                 for g, r in zip(leaves, ref_leaves)],
+                "embed_copies_rel": {
+                    "table": _tree_rel([grads[0]["embed"]],
+                                       [oracle[0]["embed"]]),
+                    "head": _tree_rel([grads[-1]["head"]],
+                                      [oracle[-1]["head"]])},
+                "embed_sum_rel_to_phase_train": _tree_rel(
+                    [embed], [tied.to(embed.device)]),
+                "launches": launches,
+                "inline_promoted": promoted,
+                "stage_ms": {f: {ph: _mean_ms(r, ph) for ph in (
+                    "exec", "sched_wait", "arg_fetch")}
+                    for f, r in rows.items()}}
+            del grads, leaves, embed, oracle, ref_leaves
+            torch.cuda.empty_cache()
+            runs[sched] = run
+            checks[f"{sched}_loss"] = run["loss_rel"] <= _TPIPE_REL_TOL
+            checks[f"{sched}_grads"] = all(
+                r <= _TPIPE_REL_TOL for r in run["grad_rel"]) and all(
+                r <= _TPIPE_REL_TOL
+                for r in run["embed_copies_rel"].values())
+            checks[f"{sched}_launches"] = launches == [
+                _TPIPE_LAUNCHES] * _TPIPE_STAGES
+            # no activation or cotangent passed through the driver: each
+            # hop was a ref to the producing stage's arena
+            checks[f"{sched}_by_ref"] = promoted == 0
+        row["runs"] = runs
+        row["activation_bytes"] = 2048 * cfg.d_model * 2
+        row["max_inline_object_size"] = get_config().max_inline_object_size
+        checks["activation_in_arena"] = (row["activation_bytes"]
+                                         > row["max_inline_object_size"])
+        pipe.shutdown()
+        del pipe, oracles
+        torch.cuda.empty_cache()
+        row["dp"] = _tpipe_dp_run(PL, params, cfg, mbs, tgts, checks)
+        del params
+    except Exception:
+        # what failed where, before the cluster and its task table go
+        _emit({"phase": "train_pipeline.failed_tasks", "tasks": [
+            {"name": r["name"], "node_idx": r["node_idx"],
+             "error": (r["error"] or "")[-2000:]}
+            for r in state.list_tasks(
+                filters=[("state", "=", "FAILED")], limit=100)],
+            "arenas_used_highwater_capacity_gib": _arenas(state)})
+        raise
+    finally:
+        cluster.shutdown()
+    for _ in range(100):
+        left = _workers_left()
+        if not left:
+            break
+        time.sleep(0.1)
+    row["workers_left"] = left
+    checks["no_worker_left"] = not left
+    torch.cuda.empty_cache()
+    row["checks"] = checks
+    row["ok"] = all(checks.values())
+    _emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"train_pipeline phase failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return {k: sum(c[k] for c in runs["gpipe"]["launches"])
+            for k in _TPIPE_LAUNCHES}
+
+
 def _active_flops_per_token(cfg, seq: int) -> float:
     """Training FLOPs a token needs in the MoE model: 6 x the parameters
     it multiplies by (q/k/v/o projections, the router, its k experts'
@@ -2777,7 +3232,7 @@ def run(seed: int) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
+    t_script = t0 = time.perf_counter()
     per_source = _build.build_all()  # one nvcc per source, all together
     libs = {n: _build.load(n)._name for n in _build.sources()}
     ptxas = {n: _build.ptxas_report(_build.build_log(n)) for n in libs}
@@ -2888,6 +3343,10 @@ def run(seed: int) -> int:
     _emit({"driver_reserved_bytes": torch.cuda.memory_reserved()})
     trainer_launches = attempt("trainer", phase_trainer, fa, T, TR, C, seed,
                                train_row)
+    torch.cuda.empty_cache()
+    tpipe_launches = attempt("train_pipeline", phase_train_pipeline, fa, T,
+                             TR, C, seed)
+    _emit({"script_wall_s": time.perf_counter() - t_script})
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -2915,6 +3374,7 @@ def run(seed: int) -> int:
             "ring_forward": ring_launches["ring_forward"],
             "train_mesh_step": mesh_launches["flash_fwd"],
             "trainer_step": trainer_launches["flash_fwd"],
+            "train_pipeline": tpipe_launches["flash_fwd"],
             **_axis_launches(tensor_row, pipeline_row, "flash_fwd")}}]
     for name, line_no, source, err in (
             ("flash_bwd_dq", 87, "flash_bwd.cu", "dq_max_abs_err"),
@@ -2942,6 +3402,7 @@ def run(seed: int) -> int:
                     else "ring_backward_dkv"],
                 "train_mesh_step": mesh_launches[name],
                 "trainer_step": trainer_launches[name],
+                "train_pipeline": tpipe_launches[name],
                 **_axis_launches(tensor_row, pipeline_row, name)}})
     _emit({"kernels": line})
     print(smi, flush=True)

@@ -13,7 +13,9 @@ with GPU leases and torch tensors on the object plane), Serve
 (``serve``: deployments, handles, proxies and the LLM deployments on the
 port's engine), Train (``train``: ``TorchTrainer`` over a gang of worker
 actors in one ``torch.distributed`` group, checkpoints of torch train
-state, gang restart) and Tune (``tune``). Entry points of
+state, gang restart, the MPMD pipeline of stage actors) and Tune
+(``tune``), with ``collective`` (host-plane collectives between actors)
+and ``cluster_utils`` (logical multi-node clusters). Entry points of
 the model stack run on CUDA unless the caller passes ``device="cpu"``.
 
 Public core API mirrors the reference's (``ray.*``):
@@ -30,8 +32,9 @@ import importlib
 from ray_tpu_torch._version import __version__
 
 _SUBMODULES = ("models", "ops", "parallel", "entry", "interop", "core",
-               "serve", "train", "tune", "tracing", "metrics", "profiling",
-               "runtime_env", "state", "trace_analysis", "usage_stats")
+               "serve", "train", "tune", "collective", "cluster_utils",
+               "tracing", "metrics", "profiling", "runtime_env", "state",
+               "trace_analysis", "usage_stats")
 
 _API = ("ActorClass", "ActorHandle", "NodeAffinitySchedulingStrategy",
         "PlacementGroup", "PlacementGroupSchedulingStrategy",

@@ -179,7 +179,9 @@ class CoreContext:
         self._pinned: set = set()
         self._contained: Dict[ObjectID, list] = {}
         self._free_buf: list = []       # buffered OBJECT_FREE id bins
-        self._free_lock = threading.Lock()
+        # re-entrant: an ObjectRef's __del__, run by the garbage collector
+        # inside _flush_frees, frees through it again
+        self._free_lock = threading.RLock()
         # Borrow-handoff pins: refs we shipped inside a task RESULT stay
         # pinned here for a grace window, so our BORROW_REMOVE cannot
         # outrun the receiver's BORROW_ADD at the owner (chained borrow
@@ -2239,9 +2241,13 @@ class CoreContext:
                 # on a node that still holds the previous copy of its result
                 if not self.store.contains(oid):
                     self.store.put_serialized(oid, sv.frames)
-                self.head.send(P.OBJECT_SEALED, oid.binary(), self.node_idx,
+                # a call, not a send: the reply reaches the owner on
+                # another connection, and the owner pulls the return
+                # through the head at once — the head must know the
+                # object before the reply leaves
+                self.head.call(P.OBJECT_SEALED, oid.binary(), self.node_idx,
                                sv.total_bytes, spec.owner,
-                               spec.job_id.hex())
+                               spec.job_id.hex(), timeout=120)
                 meta.append(("p", self.node_idx))
         return meta
 

@@ -2548,6 +2548,8 @@ class Head:
                             msg_type=P.OBJECT_LOCATE_REPLY)
             except P.ConnectionLost:
                 pass  # that waiter died; the rest must still hear
+        if rid > 0:  # a task's return: its reply waits for this answer
+            conn.reply(rid, True)
         self._maybe_spill(node_idx)
 
     def _h_obj_tag(self, conn, rid, oid_bins, tag):

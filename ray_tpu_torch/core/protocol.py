@@ -355,6 +355,11 @@ class Connection:
         # another sender's drain), preserving synchronous ConnectionLost
         # semantics for every caller.
         self._wq: deque = deque()
+        #: the thread that holds ``_wlock`` (None when free): a send that
+        #: this thread makes while it drains — from a finalizer the
+        #: garbage collector runs mid-drain, e.g. an ObjectRef's __del__
+        #: sending its free — only queues, and the drain sends it
+        self._wlock_owner: Optional[int] = None
         self._coalesce_max_bytes = 0   # lazily read from config
         self._coalesce_max_frames = 0
         self._backpressure_ts = 0.0
@@ -429,9 +434,20 @@ class Connection:
         # connection fall back to the compile-time default
         if len(wq) >= (self._coalesce_max_frames or 64):
             self._note_backpressure()
+        me = threading.get_ident()
+        if self._wlock_owner == me:
+            return  # re-entered mid-drain: the drain sends the item
         with self._wlock:
-            if not item[3]:
-                self._drain_wlocked()
+            self._wlock_owner = me
+            try:
+                if not item[3]:
+                    self._drain_wlocked()
+                    # a send re-entered mid-drain queued its item after
+                    # the drain took the queue
+                    while wq:
+                        self._drain_wlocked()
+            finally:
+                self._wlock_owner = None
         err = item[2]
         if err is not None:
             raise err

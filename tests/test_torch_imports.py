@@ -35,7 +35,11 @@ def test_port_imports_no_jax_and_no_reference_package():
             "ray_tpu_torch.train.backend", "ray_tpu_torch.train.checkpoint",
             "ray_tpu_torch.train.trainer", "ray_tpu_torch.tune",
             "ray_tpu_torch.tune.execution",
-            "ray_tpu_torch.tune.external_search"} <= set(mods)
+            "ray_tpu_torch.tune.external_search",
+            "ray_tpu_torch.cluster_utils", "ray_tpu_torch.collective",
+            "ray_tpu_torch.collective.collective",
+            "ray_tpu_torch.train.pipeline",
+            "ray_tpu_torch.train.pipeline_schedules"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -65,7 +69,9 @@ def test_runtime_entry_points_load_no_torch():
     trainer, its workers' actor class, the backend, checkpoints, a tuner)
     load no torch: the package's names load on first access, the LLM
     deployments import torch inside their replicas, and a train worker
-    when its backend or its loop needs it."""
+    when its backend or its loop needs it. So do the collective library,
+    cluster_utils and the MPMD pipeline (its stages import torch when they
+    run a torch-mode program)."""
     code = (
         "import json, sys\n"
         "import ray_tpu_torch\n"
@@ -78,6 +84,11 @@ def test_runtime_entry_points_load_no_torch():
         "from ray_tpu_torch import train, tune\n"
         "from ray_tpu_torch.train import backend, checkpoint, worker_group\n"
         "from ray_tpu_torch.tune import execution, external_search\n"
+        "from ray_tpu_torch import cluster_utils, collective\n"
+        "from ray_tpu_torch.train import pipeline, pipeline_schedules\n"
+        "from ray_tpu_torch.train import Pipeline, PipelineStage\n"
+        "PipelineStage(fwd=lambda p, x: (x, None), bwd=lambda p, s, g: g)\n"
+        "pipeline_schedules.one_f_one_b_order(4, 8)\n"
         "train.TorchTrainer(lambda: None,\n"
         "                   scaling_config=train.ScalingConfig(use_gpu=True))\n"
         "train.Checkpoint.from_dict({'a': 1})\n"

@@ -21,7 +21,11 @@ no JAX, so it runs on a machine that has only PyTorch:
   training the llama3-1b train cell on make_mesh(fsdp=4) at global batch
   4 x 2048: its losses within 2e-3 of the unmeshed steps on one card; a
   checkpoint gathered by every rank and kept from rank 0 has the unmeshed
-  state's shapes, and resuming from it gives the uninterrupted step.
+  state's shapes, and resuming from it gives the uninterrupted step;
+- the MPMD pipeline (ray_tpu_torch.train.Pipeline) of the llama3-1b train
+  cell on one node with 4 GPUs: 4 num_gpus=1 stage actors, one a card,
+  and 2 stages x 2 replicas whose grads sync through
+  ray_tpu_torch.collective, against single_program_reference on one card.
 """
 
 import pytest
@@ -287,3 +291,113 @@ def test_torch_trainer_4_cards(four_cards, tmp_path):
           f"{[m['loss'] for m in out['again'].metrics_history]}, "
           f"CUDA_VISIBLE_DEVICES {hist[0]['cuda_visible_devices']}")
     check_fsdp_trainer_run(out)
+
+
+def pipeline_run(n_stages: int, replicas: int, device: str) -> dict:
+    """The llama3-1b train cell (device "cuda"; on the CPU, tiny_config
+    for a rehearsal) as ``n_stages`` x ``replicas`` stage actors of the
+    port's MPMD pipeline (chip_smoke.LlamaStage), 1F1B on 4 microbatches
+    of [1, T], on one node of 4 GPUs: one num_gpus=1 stage a card (on the
+    CPU the gang takes no GPU). The oracle is single_program_reference in
+    the driver on one card. -> walls, leases, losses, and the grads'
+    distances from the oracle."""
+    import time
+
+    import chip_smoke as CS
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models import config as C
+    from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.train import pipeline as PL
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = device == "cuda"
+    if gpu:
+        cfg = C.get_config("llama3-1b", param_dtype=torch.bfloat16)
+        seq = 2048
+    else:
+        cfg = C.tiny_config(tie_embeddings=True, n_layers=4)
+        seq = 32
+    params = T.init_params(torch.Generator(device=device).manual_seed(SEED),
+                           cfg, device=device)
+    g = torch.Generator(device=device).manual_seed(SEED + 3)
+    toks = torch.randint(0, cfg.vocab_size, (4, seq + 1), generator=g,
+                         device=device, dtype=torch.int32)
+    mbs = [toks[i:i + 1, :-1] for i in range(4)]
+    tgts = [toks[i:i + 1, 1:] for i in range(4)]
+    stages = CS.llama_stages(PL, params, cfg, n_stages)
+    ref_loss, ref = PL.single_program_reference(stages, CS.stage_loss, mbs,
+                                                tgts)
+    absum = (CS.abs_grad_sum(PL, stages, mbs, tgts) if replicas > 1
+             else None)
+    rt.init(num_cpus=8, num_gpus=4 if gpu else 0,
+            object_store_memory=(16 << 30) if gpu else None,
+            log_to_driver=False,
+            _system_config={"pipeline_checkpoint_every_waves": 0})
+    try:
+        t0 = time.perf_counter()
+        pipe = PL.Pipeline(stages, loss_fn=CS.stage_loss, schedule="1f1b",
+                           replicas_per_stage=replicas, placement="none")
+        probes = pipe.probe()
+        start_s = time.perf_counter() - t0
+        pipe.reset()
+        t0 = time.perf_counter()
+        out = pipe.run_batch(mbs, tgts)
+        wall = time.perf_counter() - t0
+        launches = [p["kernel_launches"] for p in pipe.probe()]
+        grads = pipe.grads()
+        others = (rt.get([pipe.actors[k * replicas + 1].grads.remote(True)
+                          for k in range(n_stages)], timeout=600)
+                  if replicas > 1 else None)
+        pipe.shutdown()
+    finally:
+        rt.shutdown()
+    leaves = [PL._tree_leaves(x) for x in grads]
+    refs = [PL._tree_leaves(x) for x in ref]
+    res = {"stages": n_stages, "replicas": replicas,
+           "gpu_ids": sorted(p["gpu_ids"][0] for p in probes
+                             if p["gpu_ids"]),
+           "cuda_devices": [p["cuda_devices"] for p in probes],
+           "stage_actors_start_s": start_s, "batch_wall_s": wall,
+           "loss": out["loss"], "oracle_loss": ref_loss,
+           "loss_rel": abs(out["loss"] - ref_loss) / abs(ref_loss),
+           "grad_rel": [CS._tree_rel(x, r) for x, r in zip(leaves, refs)],
+           "launches": launches}
+    if replicas > 1:
+        res["over_bound"], res["worst_over_bound"] = CS.dp_over_bound(
+            PL, grads, ref, absum, 4)
+        res["replicas_bitwise"] = all(
+            CS._bitwise_tree(PL._tree_leaves(a), PL._tree_leaves(b))
+            for a, b in zip(grads, others))
+    return res
+
+
+def check_pipeline_run(res: dict, gpu: bool = True):
+    import chip_smoke as CS
+
+    n, r = res["stages"], res["replicas"]
+    if gpu:
+        assert res["gpu_ids"] == [0, 1, 2, 3]  # one stage a card
+        assert res["cuda_devices"] == [1] * 4
+        per = 16 // n * 4 // r  # layers x microbatches of a stage actor
+        assert res["launches"] == [{k: per for k in CS._TPIPE_LAUNCHES}] * 4
+    assert res["loss_rel"] <= CS._TPIPE_REL_TOL
+    if r == 1:
+        assert max(res["grad_rel"]) <= CS._TPIPE_REL_TOL
+    else:
+        assert res["over_bound"] == 0 and res["replicas_bitwise"]
+
+
+@pytest.mark.parametrize("n_stages,replicas", [(4, 1), (2, 2)])
+def test_train_pipeline_4_cards(four_cards, n_stages, replicas):
+    """The port's MPMD pipeline across 4 cards: 4 stages of 4 layers, one
+    card a stage, and 2 stages x 2 replicas whose bf16 CUDA grads sync
+    through ray_tpu_torch.collective, each against
+    single_program_reference on one card within chip_smoke's bars
+    (_TPIPE_REL_TOL; the 2 x 2 grads per element within _TPIPE_DP_BOUND
+    and the replicas equal bit for bit). Prints the batch wall beside
+    phase train_pipeline's on one card."""
+    import json
+
+    res = pipeline_run(n_stages, replicas, "cuda")
+    print(json.dumps({"train_pipeline_4_cards": res}), flush=True)
+    check_pipeline_run(res)

@@ -3,10 +3,11 @@
 cache, hint dedupe, slow-node-aware routing, zero-copy ingress), one for
 one, on ray_tpu_torch.init(num_cpus=4, num_gpus=0).
 
-Waiting for modules the port does not have yet (ROADMAP A2b):
-TestDoctorServeWarnings (3 cases, ``dashboard``),
 test_warm_object_lands_on_remote_node and
-test_broadcast_cold_start_bounded_root_egress (``cluster_utils``)."""
+test_broadcast_cold_start_bounded_root_egress run on a
+ray_tpu_torch.cluster_utils.Cluster with real agent nodes. Waiting for a
+module the port does not have yet (ROADMAP A2b): TestDoctorServeWarnings
+(3 cases, ``dashboard``)."""
 
 import threading
 import time
@@ -16,6 +17,7 @@ import pytest
 
 import ray_tpu_torch
 from ray_tpu_torch import serve
+from torch_port_util import deadline
 from ray_tpu_torch.core.config import get_config
 from ray_tpu_torch.serve.config import AutoscalingConfig, DeploymentConfig
 from ray_tpu_torch.serve.controller import ServeController, _DeploymentState
@@ -434,3 +436,124 @@ class TestServeIntegration:
                 float(payload.sum())
         finally:
             cfg.serve_request_by_ref_min_bytes = old
+
+
+# ------------------------------------------------- cluster integration
+
+
+@pytest.fixture
+def serve_tcp_cluster():
+    """Head with NO schedulable CPUs + real agent nodes: serve replicas
+    requesting num_cpus land on the agents, so cold-start actually moves
+    weights across hosts."""
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    cluster = Cluster(initialize_head=True,
+                      head_node_args={"num_cpus": 0, "num_gpus": 0})
+    handles = []
+    yield cluster, handles
+    try:
+        serve.shutdown()
+    except Exception:
+        pass
+    for h in handles:
+        h.terminate()
+    cluster.shutdown()
+
+
+def _wait_for(pred, timeout=60, msg="condition"):
+    t_end = time.monotonic() + timeout
+    while time.monotonic() < t_end:
+        if pred():
+            return
+        time.sleep(0.05)
+    raise TimeoutError(f"timed out waiting for {msg}")
+
+
+@deadline(120)
+def test_warm_object_lands_on_remote_node(serve_tcp_cluster):
+    import ray_tpu_torch.core.api as core_api
+
+    cluster, handles = serve_tcp_cluster
+    r1 = cluster.add_remote_node(num_cpus=1)
+    handles.append(r1)
+    head = core_api._head
+
+    payload = np.random.default_rng(7).integers(
+        0, 255, 4 * 1024 * 1024, dtype=np.uint8)
+    ref = ray_tpu_torch.put(payload)
+    _wait_for(lambda: ref.id in head.objects, msg="put to register")
+
+    issued = ray_tpu_torch.warm_object(ref, r1.node_idx, wait=True)
+    assert issued == 1
+    _wait_for(lambda: r1.node_idx in head.objects[ref.id].holders,
+              msg="warm pull to land")
+    # already a holder: nothing to issue
+    assert ray_tpu_torch.warm_object(ref, r1.node_idx, wait=True) == 0
+    # prefetch accounting moved (the warm rides the r13 machinery)
+    from ray_tpu_torch import state
+
+    op = state.object_plane_stats()
+    assert op["prefetch_issued"] >= 1
+
+
+@deadline(180)
+def test_broadcast_cold_start_bounded_root_egress(serve_tcp_cluster):
+    """Two replicas cold-start on two remote nodes with weights by ref
+    and broadcast_fanout=1: the root (head, holding the driver's put)
+    serves exactly ONE stream — the second replica's weights ride the
+    first node's relay/holder — and both replicas compute the right
+    answer from the shared weights."""
+    import ray_tpu_torch.core.api as core_api
+
+    cluster, handles = serve_tcp_cluster
+    cfg = get_config()
+    old_fanout = cfg.broadcast_fanout
+    cfg.broadcast_fanout = 1
+    try:
+        r1 = cluster.add_remote_node(num_cpus=1)
+        r2 = cluster.add_remote_node(num_cpus=1)
+        handles.extend([r1, r2])
+        head = core_api._head
+
+        weights = np.random.default_rng(3).random(
+            1024 * 1024).astype(np.float64)  # 8 MiB > by-ref threshold
+
+        @serve.deployment(num_replicas=2,
+                          ray_actor_options={"num_cpus": 1})
+        class Model:
+            def __init__(self, w):
+                self.total = float(np.asarray(w).sum())
+
+            def __call__(self, x=None):
+                return self.total
+
+        # snapshot root counters right before deploy (controller boot
+        # traffic must not pollute the delta)
+        served0 = head._transfer_server.pull_requests
+        bytes0 = head._transfer_server.bytes_served
+
+        h = serve.run(Model.bind(weights), name="coldstart",
+                      timeout_s=120)
+        st = serve.status()["applications"]["coldstart"]
+        dep = st["deployments"]["Model"]
+        assert dep["replica_states"].get("RUNNING", 0) == 2
+        # weights were extracted to a ref (payload stays small) and the
+        # controller holds it for pre-warm
+        assert dep["autoscaler"]["weights_by_ref"] == 1
+
+        # both replicas answer from the SAME weights object
+        vals = {h.remote().result(timeout_s=60) for _ in range(8)}
+        assert vals == {float(weights.sum())}
+
+        # THE gate: the root served one stream; the second node's bytes
+        # came off the first node (relay or promoted holder), so root
+        # egress stays ~S, not 2xS
+        served = head._transfer_server.pull_requests - served0
+        assert served == 1, f"root served {served} streams, expected 1"
+        assert head._transfer_server.bytes_served - bytes0 <= \
+            int(1.25 * weights.nbytes)
+        # cold-start samples recorded for doctor/status
+        assert dep["autoscaler"]["cold_start"]["count"] == 2
+    finally:
+        cfg.broadcast_fanout = old_fanout
