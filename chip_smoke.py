@@ -146,6 +146,34 @@ phase:
             stage actors' start, the grads' fetch, the oracle's wall, the
             card's peak use, the 2 x 2 run's all-reduce seconds, the
             embedding copies' sum against phase train's tied gradient
+  rllib     the port's RLlib (ray_tpu_torch.rllib), fp32, TF32 off, at
+            bench_rllib.py's cell (Breakout-Mini-v0: obs 400, 3 actions,
+            hiddens (256, 256)): (a) PPO (batch 4096), IMPALA and APPO (T =
+            N = 64), A2C (4096 rows) and DQN (its 64-row replay batch):
+            each learner on the card against the same learner on the CPU
+            from the same params on the same batch (rllib_parity): loss
+            metrics within 1e-5 relative, each grad leaf within 1e-5 as
+            |d|/|g|, the params after one Adam step within 1e-6 absolute
+            plus lr |f(g_card) - f(g_cpu)|, f(g) = g / (|g| + eps): Adam's
+            first step on the two sides' grads (adam_first_step_bound,
+            at most 2 lr where |g| is near eps); (b) each
+            learner's ms per update and env-steps/s consumed (PPO: 4
+            epochs of 4096 in minibatches of 1024), one PPO update under
+            torch.profiler (busy share, launches per minibatch step), the
+            V-trace loop's share of an IMPALA update; (c) a LearnerGroup of
+            2 learner actors on a cluster_utils.Cluster whose two logical
+            nodes declare one GPU each (rllib_group_check): each sees GPU 0
+            alone, its shard's grads equal the driver's learner's bit for
+            bit, the averaged update leaves local and remote weights equal;
+            (d) on ray_tpu_torch.init(num_cpus=8): PPO on CartPole-v1 at
+            tests/test_rllib.py's settings with 2 CPU rollout workers must
+            reach episode_reward_mean 130 within 150 iterations; PPO on
+            Breakout-Mini-v0 at bench_rllib.py's end-to-end settings for 3
+            iterations (env-steps/s, each iteration's sampling, update and
+            weight sync), each worker's weights equal to the learner's
+            after a sync; (e) a Tuner of PPO, 2 trials x 2 iterations with
+            resources_per_trial {"CPU": 1, "GPU": 1}: both report, each
+            learner on the card with GPU 0 leased; no worker left
 
 After each phase a line {"phase_wall": name, "s": seconds}, after the last
 the script's wall ({"script_wall_s": ...}). Then the kernel summary line, the card's nvidia-smi line, and as the last
@@ -335,6 +363,17 @@ _TPIPE_LAUNCHES = {"flash_fwd": 16, "flash_bwd_dq": 16, "flash_bwd_dkv": 16}
 _TPIPE_DP_BOUND = 1.05 * 5 * 2.0 ** -8
 _TPIPE_HEAD_STORE = 8 << 30
 _TPIPE_NODE_STORE = 8 << 30
+# phase rllib: bench_rllib.py's cell (:116-151) and end-to-end run
+# (:175-192); the learning bar of tests/test_rllib.py:133-150
+_RL_HIDDENS = (256, 256)
+_RL_PPO_BATCH, _RL_PPO_MINIBATCH, _RL_PPO_EPOCHS = 4096, 1024, 4
+_RL_T = _RL_N = 64
+_RL_REL_TOL = 1e-5
+_RL_ADAM_ABS = 1e-6
+_ADAM_EPS = 1e-8
+_RL_LEARNERS = ("ppo", "impala", "appo", "a2c", "dqn")
+_RL_CARTPOLE_BAR, _RL_CARTPOLE_ITERS = 130.0, 150
+_RL_BREAKOUT_ITERS = 3
 
 
 def _emit(obj):
@@ -1985,9 +2024,11 @@ def _step_profile(step):
                 "count": e.count} for e in top]
     except Exception:  # reading the profile is a probe here, not a phase
         traceback.print_exc()
-        dev_us, top = 0, []
+        dev_us, top, events = 0, [], []
     return {"profiled_wall_ms": wall * 1e3,
             "device_ms": dev_us / 1e3 if dev_us else "not measured",
+            "device_launches": (sum(e.count for e in events) if dev_us
+                                else "not measured"),
             "device_busy_share": (dev_us / 1e6 / wall if dev_us
                                   else "not measured"),
             "top_kernels": top}
@@ -2803,6 +2844,446 @@ def phase_train_pipeline(fa, T, TR, C, seed: int):
             for k in _TPIPE_LAUNCHES}
 
 
+# ---- phase rllib -----------------------------------------------------------
+
+def rllib_learner(name: str, obs_dim: int, num_actions: int, hiddens,
+                  seed: int, device):
+    """One of the five learners at its algorithm's default settings."""
+    from ray_tpu_torch import rllib
+
+    kw = dict(hiddens=hiddens, seed=seed, device=device)
+    if name == "ppo":
+        return rllib.PPOLearner(obs_dim, num_actions, **kw)
+    if name == "impala":
+        return rllib.ImpalaLearner(obs_dim, num_actions, **kw)
+    if name == "appo":
+        return rllib.APPOLearner(obs_dim, num_actions, **kw)
+    if name == "a2c":
+        c = rllib.A2CConfig()
+        return rllib.A2CLearner(obs_dim, num_actions, lr=c.lr,
+                                vf_coeff=c.vf_coeff,
+                                entropy_coeff=c.entropy_coeff,
+                                grad_clip=c.grad_clip, **kw)
+    c = rllib.DQNConfig()
+    return rllib.DQNLearner(obs_dim, num_actions, lr=c.lr, gamma=c.gamma,
+                            double_q=c.double_q, **kw)
+
+
+def rllib_batch(name: str, obs_dim: int, num_actions: int, seed: int,
+                rows: int = _RL_PPO_BATCH, T: int = _RL_T, N: int = _RL_N):
+    """A fixed batch for ``name``'s learner, made by numpy from ``seed``:
+    ``rows`` rows (PPO, A2C), [T, N] time-major (IMPALA, APPO), or DQN's
+    replay batch (its config's train_batch_size, with PER weights)."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import DQNConfig, SampleBatch
+
+    rng = np.random.default_rng(seed)
+    logp = lambda shape: (np.log(1.0 / num_actions)  # noqa: E731
+                          + 0.3 * rng.normal(size=shape)).astype(np.float32)
+    f32 = lambda shape: rng.normal(size=shape).astype(np.float32)  # noqa
+    if name in ("ppo", "a2c"):
+        return SampleBatch({"obs": f32((rows, obs_dim)),
+                            "actions": rng.integers(0, num_actions, rows),
+                            "action_logp": logp(rows),
+                            "advantages": f32(rows),
+                            "value_targets": f32(rows)})
+    if name in ("impala", "appo"):
+        return SampleBatch({"obs": f32((T, N, obs_dim)),
+                            "actions": rng.integers(0, num_actions, (T, N)),
+                            "rewards": f32((T, N)),
+                            "dones": rng.random((T, N)) < 0.02,
+                            "action_logp": logp((T, N)),
+                            "bootstrap_obs": f32((N, obs_dim))})
+    B = DQNConfig().train_batch_size
+    return SampleBatch({"obs": f32((B, obs_dim)),
+                        "actions": rng.integers(0, num_actions, B),
+                        "rewards": f32(B), "dones": rng.random(B) < 0.05,
+                        "new_obs": f32((B, obs_dim)),
+                        "weights": rng.uniform(0.2, 1.0, B).astype(
+                            np.float32)})
+
+
+def _rl_one_step(name: str, learner, batch, seed: int) -> dict:
+    """One Adam step through the learner's own update()."""
+    if name == "ppo":
+        return learner.update(batch, num_epochs=1,
+                              minibatch_size=batch.count, seed=seed)
+    return learner.update(batch)
+
+
+def _rl_rel(got, ref) -> float:
+    import numpy as np
+
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.linalg.norm(got - ref) / max(np.linalg.norm(ref),
+                                                 1e-30))
+
+
+def adam_first_step_bound(grads_a, grads_b, lr: float, clip) -> dict:
+    """Per element, how far two first Adam steps from the same params may
+    end apart given each side's gradients: _RL_ADAM_ABS for the arithmetic,
+    plus lr |f(g_a) - f(g_b)| with f(g) = g / (|g| + eps), the first step's
+    direction once the bias corrections make mu_hat = g and sqrt(nu_hat) =
+    |g|, each side's grads clipped by its own global norm. Where |g| is near
+    eps, f turns the grads' reduction-order noise into up to 2 lr (at
+    bench_rllib.py's width an element of 1.25e-8, 2e-6 of its leaf's
+    largest, moved 1.25e-6 between two CPU thread counts); elsewhere the
+    second term vanishes."""
+    import numpy as np
+
+    def direction(grads):
+        norm = math.sqrt(sum(float((g.astype(np.float64) ** 2).sum())
+                             for g in grads.values()))
+        scale = 1.0 if clip is None or norm < clip else clip / norm
+        return {k: scale * g / (np.abs(scale * g) + _ADAM_EPS)
+                for k, g in grads.items()}
+
+    fa, fb = direction(grads_a), direction(grads_b)
+    return {k: _RL_ADAM_ABS + lr * np.abs(fa[k] - fb[k]) for k in fa}
+
+
+def rllib_parity(name: str, obs_dim: int, num_actions: int, hiddens,
+                 seed: int) -> dict:
+    """``name``'s learner on the card against the same learner on the CPU:
+    the same params (the CPU learner's, with the policy head scaled by 100
+    so the policy is far from uniform: near it, a policy loss over
+    normalized advantages cancels to ~1e-4 of its terms and its relative
+    error measures the cancellation) and the same batch. Loss metrics
+    within _RL_REL_TOL relative, each grad leaf within _RL_REL_TOL as
+    |d|/|g|, the params after one Adam step within adam_first_step_bound
+    of each other. -> a row with the largest error beside each bar and
+    "ok"."""
+    import numpy as np
+
+    cpu = rllib_learner(name, obs_dim, num_actions, hiddens, seed, "cpu")
+    card = rllib_learner(name, obs_dim, num_actions, hiddens, seed, "cuda")
+    w = cpu.get_weights()
+    w["w_pi"] = w["w_pi"] * 100.0
+    cpu.set_weights(w)
+    card.set_weights(w)
+    batch = rllib_batch(name, obs_dim, num_actions, seed + 1)
+    g_cpu, m_cpu = cpu.compute_grads(batch)
+    g_card, m_card = card.compute_grads(batch)
+    grad_rel = {k: _rl_rel(g_card[k], g_cpu[k]) for k in g_cpu}
+    metric_rel = {k: _rl_rel(m_card[k], m_cpu[k]) for k in m_cpu}
+    out_cpu = _rl_one_step(name, cpu, batch, seed)
+    out_card = _rl_one_step(name, card, batch, seed)
+    metric_rel.update({f"update_{k}": _rl_rel(out_card[k], out_cpu[k])
+                       for k in out_cpu})
+    lr = cpu.tx.learning_rate
+    bound = adam_first_step_bound(g_card, g_cpu, lr, cpu.tx.grad_clip)
+    new_cpu, new_card = cpu.get_weights(), card.get_weights()
+    p_abs = over_bound = 0.0
+    amplified, amplified_g = 0, 0.0
+    for k in new_cpu:
+        d = np.abs(new_card[k].astype(np.float64) - new_cpu[k])
+        p_abs = max(p_abs, float(d.max()))
+        over_bound = max(over_bound, float((d / bound[k]).max()))
+        big = d > _RL_ADAM_ABS
+        amplified += int(big.sum())
+        amplified_g = max(amplified_g, float(
+            np.abs(g_cpu[k][big]).max(initial=0.0)))
+    row = {"learner": name, "rows": int(np.prod(batch["actions"].shape)),
+           "metric_max_rel": max(metric_rel.values()),
+           "metric_bar": _RL_REL_TOL, "metric_rel": metric_rel,
+           "grad_max_rel": max(grad_rel.values()), "grad_bar": _RL_REL_TOL,
+           "param_max_abs": p_abs, "param_abs_bar": _RL_ADAM_ABS,
+           "param_max_share_of_bound": over_bound,
+           "param_elements_past_abs_bar": amplified,
+           "their_largest_abs_g": amplified_g, "adam_eps": _ADAM_EPS}
+    row["ok"] = (row["metric_max_rel"] <= _RL_REL_TOL
+                 and row["grad_max_rel"] <= _RL_REL_TOL and over_bound <= 1)
+    return row
+
+
+def _rl_sync_ms(fn, iters: int) -> float:
+    """Host ms per call of fn(), each ending in a synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def rllib_throughput(obs_dim: int, num_actions: int, seed: int) -> dict:
+    """(b): each learner's ms per update on the card and the env-steps it
+    consumes a second; one PPO update under the profiler; the V-trace
+    loop's share of an IMPALA update."""
+    import torch
+
+    from ray_tpu_torch.rllib import vtrace
+
+    out = {}
+    for name in _RL_LEARNERS:
+        lrn = rllib_learner(name, obs_dim, num_actions, _RL_HIDDENS, seed,
+                            "cuda")
+        batch = rllib_batch(name, obs_dim, num_actions, seed + 2)
+        kw = (dict(num_epochs=_RL_PPO_EPOCHS,
+                   minibatch_size=_RL_PPO_MINIBATCH, seed=seed)
+              if name == "ppo" else {})
+        ms = _rl_sync_ms(lambda: lrn.update(batch, **kw), 5)
+        rows = int(batch["actions"].size)
+        out[name] = {"rows": rows, "ms_per_update": ms,
+                     "env_steps_per_s": rows / (ms / 1e3)}
+        if name == "ppo":
+            steps = _RL_PPO_EPOCHS * (rows // _RL_PPO_MINIBATCH)
+            prof = _step_profile(lambda: lrn.update(batch, **kw))
+            n = prof["device_launches"]
+            prof["adam_steps"] = steps
+            prof["launches_per_minibatch_step"] = (
+                n / steps if isinstance(n, int) else n)
+            # the profiler slows the host many fold: the share of an
+            # unprofiled update's wall that the device is busy
+            dev_ms = prof["device_ms"]
+            prof["device_busy_share_of_update"] = (
+                dev_ms / ms if isinstance(dev_ms, float) else dev_ms)
+            out["ppo_profile"] = prof
+        if name == "impala":
+            dev = lrn._batch(batch)
+            with torch.no_grad():
+                from ray_tpu_torch.rllib.models import forward
+                logits, values = forward(
+                    lrn.params, dev["obs"].reshape(_RL_T * _RL_N, -1))
+                _, boot = forward(lrn.params, dev["bootstrap_obs"])
+            tlogp = torch.log_softmax(logits, -1).reshape(
+                _RL_T, _RL_N, -1).gather(
+                    -1, dev["actions"][..., None]).squeeze(-1)
+            vals = values.reshape(_RL_T, _RL_N)
+            v_ms = _rl_sync_ms(lambda: vtrace(
+                dev["action_logp"], tlogp, dev["rewards"], dev["dones"],
+                vals, boot, lrn.gamma), 20)
+            out["vtrace"] = {"ms": v_ms, "T": _RL_T, "N": _RL_N,
+                             "share_of_impala_update": v_ms / ms}
+        del lrn
+    torch.cuda.empty_cache()
+    return out
+
+
+def rllib_group_check(obs_dim: int, num_actions: int, hiddens, seed: int,
+                      rows: int) -> dict:
+    """(c): a LearnerGroup of 2 PPO learner actors on a cluster whose head
+    has no GPU and whose two logical nodes declare one each (both lease the
+    card as GPU 0). Each actor sees GPU 0 alone; its grads on its shard
+    equal the driver's learner's on the same shard bit for bit (the same
+    kernels on the same inputs); after the averaged update the local and
+    remote weights are equal bit for bit."""
+    import functools
+
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.rllib import LearnerGroup, PPOLearner
+
+    cluster = Cluster(head_node_args={"num_cpus": 2, "num_gpus": 0,
+                                      "log_to_driver": False})
+    row, checks = {}, {}
+    group = None
+    try:
+        for _ in range(2):
+            cluster.add_node(num_cpus=1, num_gpus=1)
+        make = functools.partial(PPOLearner, obs_dim, num_actions,
+                                 hiddens=hiddens, seed=seed)
+        t0 = time.perf_counter()
+        group = LearnerGroup(make, num_learners=2)
+        row["learner_actors_start_s"] = time.perf_counter() - t0
+        where = rt.get([r.where.remote() for r in group.remotes],
+                       timeout=120)
+        row["where"] = where
+        checks["gpu0_alone"] = all(
+            w["gpu_ids"] == [0] and w["cuda_visible_devices"] == "0"
+            and w["device_count"] == 1 and w["device"] == "cuda"
+            for w in where)
+        batch = rllib_batch("ppo", obs_dim, num_actions, seed + 3, rows=rows)
+        half = rows // 2
+        shards = [batch.slice(0, half), batch.slice(half, rows)]
+        remote = rt.get([r.compute_grads.remote(s)
+                         for r, s in zip(group.remotes, shards)],
+                        timeout=120)
+        local = [group.local.compute_grads(s) for s in shards]
+        checks["shard_grads_bitwise"] = all(
+            all(np.array_equal(gr[k], gl[k]) for k in gl) and mr == ml
+            for (gr, mr), (gl, ml) in zip(remote, local))
+        row["shard_grads_max_abs"] = max(
+            float(np.abs(gr[k] - gl[k]).max())
+            for (gr, _), (gl, _) in zip(remote, local) for k in gl)
+        t0 = time.perf_counter()
+        group.update(batch)
+        row["group_update_s"] = time.perf_counter() - t0
+        w = group.get_weights()
+        checks["weights_bitwise"] = all(
+            all(np.array_equal(rw[k], w[k]) for k in w)
+            for rw in rt.get([r.get_weights.remote()
+                              for r in group.remotes], timeout=120))
+    finally:
+        for r in group.remotes if group is not None else ():
+            rt.kill(r)
+        cluster.shutdown()
+    row["checks"] = checks
+    row["ok"] = bool(checks) and all(checks.values())
+    return row
+
+
+def _rl_weights_equal(algo) -> bool:
+    """Each rollout worker's weights equal the learner's bit for bit."""
+    import numpy as np
+
+    import ray_tpu_torch as rt
+
+    w = algo.get_policy_weights()
+    return all(all(np.array_equal(ww[k], w[k]) for k in w)
+               for ww in rt.get([x.get_weights.remote()
+                                 for x in algo.workers], timeout=120))
+
+
+def rllib_end_to_end(seed: int) -> dict:
+    """(d) and (e) on the runtime the caller started."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.rllib import PPO, PPOConfig
+
+    row, checks = {}, {}
+    # (d1) PPO on CartPole-v1 at tests/test_rllib.py:133-140's settings
+    t0 = time.perf_counter()
+    algo = PPOConfig().environment("CartPole-v1").rollouts(
+        num_rollout_workers=2, num_envs_per_worker=4,
+        rollout_fragment_length=64,
+    ).training(
+        lr=1e-3, train_batch_size=512, num_sgd_iter=8,
+        sgd_minibatch_size=128, entropy_coeff=0.003, grad_clip=10.0,
+    ).debugging(seed=seed).build()
+    row["cartpole_build_s"] = time.perf_counter() - t0
+    best, iters, timers = 0.0, 0, []
+    t0 = time.perf_counter()
+    try:
+        for iters in range(1, _RL_CARTPOLE_ITERS + 1):
+            result = algo.train()
+            timers.append(result["timers"])
+            best = max(best, result.get("episode_reward_mean", 0.0))
+            if best >= 150.0:
+                break
+        row["cartpole"] = {
+            "best_episode_reward_mean": best, "iterations": iters,
+            "train_s": time.perf_counter() - t0,
+            "learner_device": result["learner_device"],
+            "mean_timers_ms": {k: sum(t[k] for t in timers) / len(timers)
+                               for k in timers[0]}}
+        checks["cartpole_reaches_130"] = best >= _RL_CARTPOLE_BAR
+        checks["cartpole_learner_on_card"] = (result["learner_device"]
+                                              == "cuda")
+        checks["cartpole_weights_synced"] = _rl_weights_equal(algo)
+    finally:
+        algo.stop()
+    # (d2) PPO on Breakout-Mini-v0 at bench_rllib.py:182-187's settings
+    t0 = time.perf_counter()
+    algo = PPOConfig().environment("Breakout-Mini-v0").rollouts(
+        num_rollout_workers=2, num_envs_per_worker=8,
+        rollout_fragment_length=64,
+    ).training(model_hiddens=_RL_HIDDENS).debugging(seed=seed).build()
+    row["breakout_build_s"] = time.perf_counter() - t0
+    try:
+        its = []
+        for _ in range(_RL_BREAKOUT_ITERS):
+            r = algo.train()
+            its.append({"env_steps_per_sec": r["env_steps_per_sec"],
+                        "env_steps": r["env_steps_this_iter"],
+                        **r["timers"]})
+        row["breakout"] = its
+        checks["breakout_weights_synced"] = _rl_weights_equal(algo)
+    finally:
+        algo.stop()
+    # (e) Tune: two PPO trials, each leasing the card for its learner
+    base = PPOConfig().rollouts(num_rollout_workers=1,
+                                num_envs_per_worker=2,
+                                rollout_fragment_length=32)
+    t0 = time.perf_counter()
+    results = tune.Tuner(
+        PPO, param_space={"__algo_config__": base,
+                          "lr": tune.grid_search([1e-4, 3e-4])},
+        tune_config=tune.TuneConfig(
+            metric="episode_reward_mean", mode="max",
+            resources_per_trial={"CPU": 1, "GPU": 1}),
+        run_config=tune.RunConfig(stop={"training_iteration": 2}),
+    ).fit()
+    row["tune_s"] = time.perf_counter() - t0
+    trials = [{"lr": r.config["lr"],
+               "iterations": r.metrics.get("training_iteration"),
+               "learner_device": r.metrics.get("learner_device"),
+               "gpu_ids": r.metrics.get("gpu_ids"),
+               "error": str(r.error) if r.error else None}
+              for r in results]
+    row["tune"] = trials
+    checks["tune_both_trials_report_on_gpu0"] = (
+        len(trials) == 2 and {t["lr"] for t in trials} == {1e-4, 3e-4}
+        and all(t["iterations"] == 2 and t["learner_device"] == "cuda"
+                and t["gpu_ids"] == [0] and t["error"] is None
+                for t in trials))
+    row["checks"] = checks
+    return row
+
+
+def phase_rllib(seed: int):
+    """The port's RLlib on the card (the module's docstring, rllib)."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import BreakoutMini
+
+    obs_dim, num_actions = BreakoutMini.observation_dim, \
+        BreakoutMini.num_actions
+    row = {"phase": "rllib", "card": _nvidia_smi(),
+           "cell": {"env": "Breakout-Mini-v0", "obs_dim": obs_dim,
+                    "num_actions": num_actions, "hiddens": _RL_HIDDENS,
+                    "ppo_batch": _RL_PPO_BATCH,
+                    "ppo_minibatch": _RL_PPO_MINIBATCH,
+                    "ppo_epochs": _RL_PPO_EPOCHS, "T": _RL_T, "N": _RL_N,
+                    "dtype": "float32", "tf32": False}}
+    checks = {}
+    t0 = time.perf_counter()
+    row["parity"] = [rllib_parity(n, obs_dim, num_actions, _RL_HIDDENS,
+                                  seed) for n in _RL_LEARNERS]
+    row["parity_s"] = time.perf_counter() - t0
+    for p in row["parity"]:
+        checks[f"parity_{p['learner']}"] = p["ok"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    row["throughput"] = rllib_throughput(obs_dim, num_actions, seed)
+    row["throughput_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    row["group"] = rllib_group_check(obs_dim, num_actions, _RL_HIDDENS,
+                                     seed, _RL_PPO_BATCH)
+    row["group_s"] = time.perf_counter() - t0
+    checks.update({f"group_{k}": v
+                   for k, v in row["group"]["checks"].items()})
+    checks["group_ran"] = bool(row["group"]["checks"])
+    t0 = time.perf_counter()
+    rt.init(num_cpus=8)
+    try:
+        e2e = rllib_end_to_end(seed)
+    finally:
+        rt.shutdown()
+    row["end_to_end_s"] = time.perf_counter() - t0
+    checks.update(e2e.pop("checks"))
+    row["end_to_end"] = e2e
+    for _ in range(100):
+        left = _workers_left()
+        if not left:
+            break
+        time.sleep(0.1)
+    row["workers_left"] = left
+    checks["no_worker_left"] = not left
+    row["checks"] = checks
+    row["ok"] = all(checks.values())
+    _emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"rllib phase failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+
+
 def _active_flops_per_token(cfg, seq: int) -> float:
     """Training FLOPs a token needs in the MoE model: 6 x the parameters
     it multiplies by (q/k/v/o projections, the router, its k experts'
@@ -3346,6 +3827,8 @@ def run(seed: int) -> int:
     torch.cuda.empty_cache()
     tpipe_launches = attempt("train_pipeline", phase_train_pipeline, fa, T,
                              TR, C, seed)
+    torch.cuda.empty_cache()
+    attempt("rllib", phase_rllib, seed)
     _emit({"script_wall_s": time.perf_counter() - t_script})
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)

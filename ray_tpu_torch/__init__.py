@@ -15,8 +15,10 @@ port's engine), Train (``train``: ``TorchTrainer`` over a gang of worker
 actors in one ``torch.distributed`` group, checkpoints of torch train
 state, gang restart, the MPMD pipeline of stage actors) and Tune
 (``tune``), with ``collective`` (host-plane collectives between actors)
-and ``cluster_utils`` (logical multi-node clusters). Entry points of
-the model stack run on CUDA unless the caller passes ``device="cpu"``.
+and ``cluster_utils`` (logical multi-node clusters), and RLlib
+(``rllib``: CPU rollout workers, learners on the card, PPO, IMPALA, APPO,
+A2C and DQN). Entry points of the model stack and RLlib's learners run on
+CUDA unless the caller passes ``device="cpu"``.
 
 Public core API mirrors the reference's (``ray.*``):
     init, shutdown, remote, get, put, wait, kill, cancel, get_actor,
@@ -32,9 +34,9 @@ import importlib
 from ray_tpu_torch._version import __version__
 
 _SUBMODULES = ("models", "ops", "parallel", "entry", "interop", "core",
-               "serve", "train", "tune", "collective", "cluster_utils",
-               "tracing", "metrics", "profiling", "runtime_env", "state",
-               "trace_analysis", "usage_stats")
+               "serve", "train", "tune", "rllib", "collective",
+               "cluster_utils", "tracing", "metrics", "profiling",
+               "runtime_env", "state", "trace_analysis", "usage_stats")
 
 _API = ("ActorClass", "ActorHandle", "NodeAffinitySchedulingStrategy",
         "PlacementGroup", "PlacementGroupSchedulingStrategy",

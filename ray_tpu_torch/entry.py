@@ -78,21 +78,26 @@ def _meshes(n: int) -> list:
 
 
 def _dryrun_step(sizes: dict, moe: bool, batch_size: int, seq: int,
-                 device) -> float:
+                 device, unmeshed: bool = False) -> float:
     """One train step of the tiny decoder on one mesh -> the global loss.
-    The same config, init and data on every mesh (of one size of fsdp)."""
+    The same config, init and data on every mesh (of one size of fsdp and
+    of pipeline, which sets the layers); ``unmeshed``: the same step on
+    this rank's device alone, to hold a mesh's loss against."""
     from ray_tpu_torch.models import training as TR
     from ray_tpu_torch.parallel.mesh import MeshSpec
 
-    mesh = MeshSpec(**sizes).build(device)
+    mesh = None if unmeshed else MeshSpec(**sizes).build(device)
     # the reference's dry-run config at d_model 256 in place of 64: heads
-    # of 64, the smallest the flash kernels take on the card
+    # of 64, the smallest the flash kernels take on the card; a layer a
+    # stage at least
     cfg = tiny_config(d_model=max(256, 8 * sizes.get("fsdp", 1)),
+                      n_layers=max(2, sizes.get("pipeline", 1)),
                       n_heads=4, n_kv_heads=4, d_ff=128,
                       attention_impl="auto", moe_experts=4 if moe else 0)
     tx = TR.make_optimizer(1e-3)
     state = TR.init_train_state(
-        torch.Generator(device=device).manual_seed(0), cfg, tx, mesh)
+        torch.Generator(device=device).manual_seed(0), cfg, tx, mesh,
+        device=device)
     step = TR.make_train_step(cfg, tx, mesh)
     toks = torch.randint(0, cfg.vocab_size, (batch_size, seq + 1),
                          generator=torch.Generator(device=device).manual_seed(1),

@@ -124,7 +124,8 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
 # ---- optimizer -------------------------------------------------------------
 
 class AdamW:
-    """``optax.chain(clip_by_global_norm(grad_clip), adamw(...))``.
+    """``optax.chain(clip_by_global_norm(grad_clip), adamw(...))``; with
+    ``grad_clip=None`` no clip, and no global norm is computed.
 
     ``init(params)`` -> state; ``update(grads, state, params)`` -> (updates,
     new state), as optax's ``tx.update``; ``step_(grads, state, params)``
@@ -132,7 +133,7 @@ class AdamW:
     norm."""
 
     def __init__(self, learning_rate, *, weight_decay: float, b1: float,
-                 b2: float, eps: float, grad_clip: float,
+                 b2: float, eps: float, grad_clip: Optional[float],
                  mu_dtype: Optional[torch.dtype]):
         self.learning_rate = learning_rate  # a float or a Schedule
         self.weight_decay, self.b1, self.b2 = weight_decay, b1, b2
@@ -163,9 +164,10 @@ class AdamW:
         """One leaf through the chain -> (update, new mu, new nu)."""
         g_norm, bc1, bc2, lr = scalars
         dt = g.dtype
-        # clip_by_global_norm: scale only when the norm reaches max_norm
-        g = torch.where(g_norm < self.grad_clip, g,
-                        (g / g_norm.to(dt)) * _scalar(self.grad_clip, dt))
+        if self.grad_clip is not None:
+            # clip_by_global_norm: scale only when the norm reaches max_norm
+            g = torch.where(g_norm < self.grad_clip, g,
+                            (g / g_norm.to(dt)) * _scalar(self.grad_clip, dt))
         # scale_by_adam: moments, then bias correction in the moments' dtype
         mu = (_scalar(1 - self.b1, dt) * g
               + _scalar(self.b1, mu.dtype) * mu)
@@ -187,7 +189,8 @@ class AdamW:
 
     def update(self, grads, state: OptState, params):
         g_leaves = tree_leaves(grads)
-        scalars = self._scalars(state, global_norm(grads))
+        scalars = self._scalars(state, None if self.grad_clip is None
+                                else global_norm(grads))
         outs = [self._leaf(g, m, n, p, scalars) for g, m, n, p in zip(
             g_leaves, tree_leaves(state["mu"]), tree_leaves(state["nu"]),
             tree_leaves(params))]
@@ -198,10 +201,12 @@ class AdamW:
 
     @torch.no_grad()
     def step_(self, grads, state: OptState, params,
-              g_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+              g_norm: Optional[torch.Tensor] = None
+              ) -> Optional[torch.Tensor]:
         """``g_norm`` (default: ``global_norm(grads)``) is the raw grads'
-        norm, given when the trees are shards of larger ones."""
-        if g_norm is None:
+        norm, given when the trees are shards of larger ones; without a clip
+        none is needed, and None is returned when none was given."""
+        if g_norm is None and self.grad_clip is not None:
             g_norm = global_norm(grads)
         scalars = self._scalars(state, g_norm)
         for g, m, n, p in zip(tree_leaves(grads), tree_leaves(state["mu"]),

@@ -310,22 +310,23 @@ class _ContinuousLLMReplica:
             world.shutdown()
 
 
-# How long a replica on the card may take to start (the controller's start
+# How long an LLM replica may take to start (the controller's start
 # deadline is the deployment's health_check_timeout_s, 10 s by default): a
-# fresh worker imports torch, makes its CUDA context and builds or loads
-# the params (with tensor_parallel, its followers do so too) before it
-# answers its first ping.
-GPU_REPLICA_START_S = 300.0
+# fresh worker imports torch, makes its CUDA context on the card and builds
+# or loads the params (with tensor_parallel, its followers, forked from a
+# fork server, do so too) before it answers its first ping. On a loaded host
+# the CPU replica of tensor_parallel=2 took longer than the default.
+REPLICA_START_S = 300.0
 
 
 def _replica_options(device, tensor_parallel: int = 1) -> dict:
-    """A replica on the card leases its GPUs (a worker without a GPU lease
-    sees ``CUDA_VISIBLE_DEVICES=""`` and would find no card) and gets
-    GPU_REPLICA_START_S to start."""
-    if device is not None and str(device) == "cpu":
-        return {}
-    return {"ray_actor_options": {"num_gpus": tensor_parallel},
-            "health_check_timeout_s": GPU_REPLICA_START_S}
+    """Every LLM replica gets REPLICA_START_S to start; one on the card also
+    leases its GPUs (a worker without a GPU lease sees
+    ``CUDA_VISIBLE_DEVICES=""`` and would find no card)."""
+    opts = {"health_check_timeout_s": REPLICA_START_S}
+    if device is None or str(device) != "cpu":
+        opts["ray_actor_options"] = {"num_gpus": tensor_parallel}
+    return opts
 
 
 def build_continuous_llm_deployment(model="tiny", *, name: str = "llm",
@@ -337,8 +338,8 @@ def build_continuous_llm_deployment(model="tiny", *, name: str = "llm",
     ``max_concurrency`` lifts the replica's query cap (and with it the
     actor's thread cap) so many callers can block in ``__call__`` while
     the engine thread interleaves them — admission happens per decode
-    step, not per cohort. Each replica leases ``tensor_parallel`` GPUs
-    and has GPU_REPLICA_START_S to start, unless ``device="cpu"``.
+    step, not per cohort. Each replica has REPLICA_START_S to start and,
+    unless ``device="cpu"``, leases ``tensor_parallel`` GPUs.
     """
     dep = deployment(_ContinuousLLMReplica, name=name) \
         .options(num_replicas=num_replicas,
@@ -352,8 +353,8 @@ def build_continuous_llm_deployment(model="tiny", *, name: str = "llm",
 def build_llm_deployment(model="tiny", *, name: str = "llm",
                          num_replicas: int = 1, **replica_kwargs):
     """-> an Application serving ``{prompt token ids} -> {token_ids}``.
-    Each replica leases one GPU and has GPU_REPLICA_START_S to start,
-    unless ``device="cpu"``.
+    Each replica has REPLICA_START_S to start and, unless
+    ``device="cpu"``, leases one GPU.
 
     Usage::
 

@@ -39,7 +39,12 @@ def test_port_imports_no_jax_and_no_reference_package():
             "ray_tpu_torch.cluster_utils", "ray_tpu_torch.collective",
             "ray_tpu_torch.collective.collective",
             "ray_tpu_torch.train.pipeline",
-            "ray_tpu_torch.train.pipeline_schedules"} <= set(mods)
+            "ray_tpu_torch.train.pipeline_schedules",
+            *(f"ray_tpu_torch.rllib.{m}" for m in (
+                "sample_batch", "env", "connectors", "replay_buffers",
+                "models", "catalog", "policy", "learner", "rollout_worker",
+                "algorithm", "ppo", "impala", "appo", "a2c", "dqn"))
+            } <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -137,6 +142,31 @@ def test_entry_points_without_device_raise_instead_of_using_cpu(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_state_from_numpy({"step": np.zeros((), np.int32),
                                 "params": tree, "opt_state": opt}, cfg)
+    # RLlib: each learner, TorchPolicy and an Algorithm raise before any
+    # worker process starts; rollout workers run their policy on the CPU
+    # by design
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib.models import params_from_numpy
+
+    kw = dict(lr=1e-3, vf_coeff=0.5, entropy_coeff=0.0, grad_clip=0.5)
+    for make in (lambda: rllib.PPOLearner(4, 2),
+                 lambda: rllib.ImpalaLearner(4, 2),
+                 lambda: rllib.APPOLearner(4, 2),
+                 lambda: rllib.A2CLearner(4, 2, **kw),
+                 lambda: rllib.DQNLearner(4, 2, lr=1e-3, gamma=0.99),
+                 lambda: rllib.TorchPolicy(4, 2),
+                 lambda: params_from_numpy({"w0": np.zeros((4, 2))})):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    import ray_tpu_torch
+    assert not ray_tpu_torch.is_initialized()
+    # Algorithm.setup resolves the device before it starts a worker: the
+    # runtime is never reached
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rllib.PPOConfig().build()
+    assert not ray_tpu_torch.is_initialized()
+    w = rllib.RolloutWorker("CartPole-v1", 2, 4, 0.99, 0.95)
+    assert w.policy.device.type == "cpu"
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -51,6 +51,38 @@ def test_dryrun_multichip_4(four_cards):
     assert len(out["dense"]) == 2 and out["dense_spread"] < 2e-3
 
 
+def _axis_vs_unmeshed(rank: int, sizes: dict, moe: bool):
+    """dryrun_multichip's train step on ``sizes``' mesh on every rank, and
+    on rank 0 the same step unmeshed on its own card."""
+    from ray_tpu_torch.entry import _dryrun_step
+
+    dev = torch.device("cuda")
+    out = {"meshed": _dryrun_step(sizes, moe, 8, 64, dev)}
+    if rank == 0:
+        out["unmeshed"] = _dryrun_step(sizes, moe, 8, 64, dev,
+                                       unmeshed=True)
+        out["card"] = torch.cuda.get_device_name(0)
+    return out
+
+
+@pytest.mark.parametrize("sizes,moe", [
+    (dict(pipeline=4), False), (dict(fsdp=1, expert=4), True)],
+    ids=["pipeline4", "moe_expert4"])
+def test_axis_of_4_cards_matches_unmeshed(four_cards, sizes, moe):
+    """ROADMAP C5: pipeline and expert over NCCL across 4 cards, each held
+    against the unmeshed step within dryrun_multichip's spread (2e-3)."""
+    from ray_tpu_torch.entry import SPREAD_TOL
+    from ray_tpu_torch.parallel.world import run_world
+
+    out = run_world(_axis_vs_unmeshed, 4, (sizes, moe), device="cuda",
+                    timeout=600)
+    want = out[0]["unmeshed"]
+    print(f"{sizes} moe={moe} on {out[0]['card']}: meshed "
+          f"{[r['meshed'] for r in out]}, unmeshed {want}")
+    for r in out:
+        assert abs(r["meshed"] - want) < SPREAD_TOL
+
+
 def _engine_tokens(rank: int, tensor: int):
     """Each prompt's greedy tokens from the fp32 engine on tensor=``tensor``
     (every rank), and on rank 0 also from the unmeshed engine."""

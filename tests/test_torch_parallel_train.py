@@ -32,7 +32,8 @@ from ray_tpu_torch.entry import dryrun_multichip
 from ray_tpu_torch.parallel.world import run_world
 from torch_parallel_checks import (LR, STEPS, TOL, batches, check_metric,
                                    check_steps, jax_steps, np_tree)
-from torch_parallel_ranks import one_world_at_a_time, train_rank
+from torch_parallel_ranks import (axis_vs_unmeshed_rank,
+                                  one_world_at_a_time, train_rank)
 from torch_port_util import one_torch_thread  # noqa: F401 (fixture)
 DENSE_CFG = {}
 MOE_CFG = dict(moe_experts=4, tie_embeddings=True)
@@ -122,3 +123,19 @@ def test_dryrun_multichip_cpu(runs):
         raise dry
     assert len(dry["dense"]) == 6 and len(dry["moe"]) == 3
     assert dry["dense_spread"] < 2e-3 and dry["moe_spread"] < 2e-3
+
+
+@pytest.mark.parametrize("sizes,moe", [
+    (dict(pipeline=4), False), (dict(fsdp=1, expert=4), True)],
+    ids=["pipeline4", "moe_expert4"])
+def test_axis_of_4_ranks_matches_unmeshed(sizes, moe):
+    """The 4-card cases of tests/test_torch_multicard.py in a gloo world of
+    4: pipeline=4 (a layer a stage) and MoE on expert=4 (an expert a rank),
+    each within dryrun_multichip's spread of the unmeshed step."""
+    from ray_tpu_torch.entry import SPREAD_TOL
+
+    with one_world_at_a_time():
+        out = run_world(axis_vs_unmeshed_rank, 4, (sizes, moe),
+                        device="cpu", timeout=300)
+    for r in out:
+        assert abs(r["meshed"] - out[0]["unmeshed"]) < SPREAD_TOL

@@ -33,7 +33,7 @@ from ray_tpu.models.config import get_config as jax_get_config
 from ray_tpu.models.transformer import init_params as jax_init_params
 from ray_tpu_torch import serve
 from ray_tpu_torch.core.config import get_config
-from ray_tpu_torch.serve.llm import (GPU_REPLICA_START_S,
+from ray_tpu_torch.serve.llm import (REPLICA_START_S,
                                      _ContinuousLLMReplica, _LLMReplica,
                                      build_continuous_llm_deployment,
                                      build_llm_deployment)
@@ -339,22 +339,22 @@ def test_tensor_parallel_replica_equals_unmeshed_and_leaves_no_follower(
 
 
 def test_builders_lease_gpus_unless_on_the_cpu():
-    """A GPU replica leases its cards and has GPU_REPLICA_START_S to start
-    (a fresh worker imports torch and makes a CUDA context first); on the
-    CPU the deployment defaults stay."""
+    """A GPU replica leases its cards; every replica has REPLICA_START_S to
+    start (a fresh worker imports torch and makes a CUDA context first, and
+    a tensor-parallel replica starts its followers, on the CPU too)."""
     def opts(app):
         c = app.deployment.config
         return c.ray_actor_options, c.health_check_timeout_s
 
-    start = GPU_REPLICA_START_S
+    start = REPLICA_START_S
     assert opts(build_llm_deployment("tiny")) == ({"num_gpus": 1}, start)
     assert opts(build_continuous_llm_deployment("tiny")) == (
         {"num_gpus": 1}, start)
     assert opts(build_continuous_llm_deployment(
         "tiny", tensor_parallel=4)) == ({"num_gpus": 4}, start)
-    assert opts(build_llm_deployment("tiny", device="cpu")) == ({}, 10.0)
+    assert opts(build_llm_deployment("tiny", device="cpu")) == ({}, start)
     assert opts(build_continuous_llm_deployment(
-        "tiny", device="cpu", tensor_parallel=2)) == ({}, 10.0)
+        "tiny", device="cpu", tensor_parallel=2)) == ({}, start)
 
 
 def test_replicas_without_a_card_raise(monkeypatch):

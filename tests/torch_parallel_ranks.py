@@ -477,3 +477,16 @@ def checkpoint_rank(rank: int, params_np: dict, directory: str):
             "leaves": [x.view(torch.int16).numpy()
                        if x.dtype == torch.bfloat16 else x.numpy()
                        for x in TR.tree_leaves(tree)]}
+
+
+def axis_vs_unmeshed_rank(rank: int, sizes: dict, moe: bool):
+    """dryrun_multichip's train step on ``sizes``' mesh (gloo, the CPU) on
+    every rank, and on rank 0 the same step unmeshed."""
+    from ray_tpu_torch.entry import _dryrun_step
+
+    dev = torch.device("cpu")
+    out = {"meshed": _dryrun_step(sizes, moe, 8, 64, dev)}
+    if rank == 0:
+        out["unmeshed"] = _dryrun_step(sizes, moe, 8, 64, dev,
+                                       unmeshed=True)
+    return out
