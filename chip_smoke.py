@@ -174,6 +174,29 @@ phase:
             after a sync; (e) a Tuner of PPO, 2 trials x 2 iterations with
             resources_per_trial {"CPU": 1, "GPU": 1}: both report, each
             learner on the card with GPU 0 leased; no worker left
+  rllib2    RLlib part 2, fp32, TF32 off: (a) SAC, TD3 and DDPG at
+            Pendulum's shapes (hiddens (256, 256), batch 128), R2D2 (obs
+            400, 3 actions, GRU 64, 32 sequences of burn-in 4 + 16), BC,
+            CQL and MARWIL (Breakout-Mini, batch 256), DreamerV3 at
+            bench_rllib.py's cell (deter 128, hidden 128, 16 x 32 steps,
+            horizon 15) and AlphaZero (TicTacToe, (64, 64), batch 256):
+            each learner on the card against the same learner on the CPU
+            from the same state, batch and noise, stage by stage
+            (rllib2_parity: a second stage, SAC's and TD3's actor or
+            Dreamer's actor-critic, against the CPU's loss at the inputs
+            the card's saw), by phase rllib (a)'s bars; (b) ms per update
+            and env-steps/s of each, SAC's and Dreamer's update under
+            torch.profiler, Dreamer's three loops and its act per env
+            step; (c) on ray_tpu_torch.init(num_cpus=8), every learner on
+            the card: SAC on Pendulum to -900 within 100 iterations,
+            DreamerV3 on CartPole to final > 60 and > early + 20 at
+            iteration 30 (the reference tests' bars), Ape-X with 2 workers
+            and 2 replay shards for 3 learning iterations (priorities
+            reach the shards, workers' weights equal the learner's),
+            MultiAgentPPO (two policies) and AlphaZero (2 self-play
+            workers, their weights equal the learner's) for 2 iterations,
+            CQL and MARWIL 64 updates on a 4096-step dataset; no worker
+            left
 
 After each phase a line {"phase_wall": name, "s": seconds}, after the last
 the script's wall ({"script_wall_s": ...}). Then the kernel summary line, the card's nvidia-smi line, and as the last
@@ -374,6 +397,41 @@ _ADAM_EPS = 1e-8
 _RL_LEARNERS = ("ppo", "impala", "appo", "a2c", "dqn")
 _RL_CARTPOLE_BAR, _RL_CARTPOLE_ITERS = 130.0, 150
 _RL_BREAKOUT_ITERS = 3
+# phase rllib2: RLlib part 2's learners at bench_rllib.py's width and the
+# reference tests' settings.
+# (a) holds each learner on the card against the same learner on the CPU
+# by phase rllib's bars, stage by stage: a stage's loss metrics and grads
+# at the inputs the card's stage saw (the second stage of SAC, TD3/DDPG
+# and Dreamer on the card's state after the first), then the params after
+# the whole step by adam_first_step_bound on each side's own grads.
+_RL2_LEARNERS = ("sac", "td3", "ddpg", "r2d2", "bc", "cql", "marwil",
+                 "dreamer", "alphazero")
+# the full cell: Pendulum's shapes (obs 3, action 1) for the continuous
+# learners; Breakout-Mini's (obs 400, 3 actions) for R2D2, the offline
+# learners and Dreamer (bench_rllib.py:153-170: deter 128, hidden 128,
+# B 16 x L 32, horizon 15); TicTacToe for AlphaZero
+_RL2_CELL = {"obs": 400, "acts": 3, "hiddens": (256, 256),
+             "offline_env": "Breakout-Mini-v0", "cont_batch": 128,
+             "r2d2_hidden": 64, "seqs": 32, "offline_batch": 256,
+             "deter": 128, "dreamer_hidden": 128, "B": 16, "L": 32,
+             "az_hiddens": (64, 64), "az_batch": 256}
+# the same checks at a small width (tests/test_torch_rllib_gpu.py)
+_RL2_SMALL = {"obs": 16, "acts": 3, "hiddens": (32, 32),
+              "offline_env": "CartPole-v1", "cont_batch": 32,
+              "r2d2_hidden": 16, "seqs": 8, "offline_batch": 64,
+              "deter": 32, "dreamer_hidden": 32, "B": 4, "L": 8,
+              "az_hiddens": (32, 32), "az_batch": 64}
+_RL2_BURN_IN, _RL2_SEQ_LEN = 4, 16
+# (c): SAC on Pendulum at tests/test_rllib_sac.py:184-205 (best >= -900
+# within 100 iterations); DreamerV3 on CartPole at
+# tests/test_rllib_dreamer.py:99-115 (at iteration 30: final > 60 and
+# final > early + 20); Ape-X 3 iterations after its shards fill;
+# MultiAgentPPO and AlphaZero 2 iterations; CQL and MARWIL 64 updates on
+# a 4096-step dataset
+_RL2_SAC_BAR, _RL2_SAC_ITERS = -900.0, 100
+_RL2_DREAMER_ITERS, _RL2_DREAMER_BAR, _RL2_DREAMER_GAIN = 30, 60.0, 20.0
+_RL2_APEX_ITERS = 3
+_RL2_DATASET_STEPS = 4096
 
 
 def _emit(obj):
@@ -3284,6 +3342,789 @@ def phase_rllib(seed: int):
                              f"{[k for k, v in checks.items() if not v]}")
 
 
+def _rl2_flat(tree, prefix: str = "") -> dict:
+    """{"a/b": numpy leaf} of a nested dict of tensors or arrays."""
+    import numpy as np
+
+    if not isinstance(tree, dict):
+        if hasattr(tree, "detach"):
+            tree = tree.detach().cpu().numpy()
+        return {prefix or "leaf": np.array(tree, np.float64)}
+    out = {}
+    for k, v in tree.items():
+        out.update(_rl2_flat(v, f"{prefix}/{k}" if prefix else k))
+    return out
+
+
+def _rl2_tree_rel(got, ref) -> float:
+    """The largest leaf's |d| / |g| over two trees of one structure."""
+    g, r = _rl2_flat(got), _rl2_flat(ref)
+    return max(_rl_rel(g[k], r[k]) for k in r)
+
+
+def rllib2_learner(name: str, cell: dict, seed: int, device, tmp: str):
+    """``name``'s learner at its algorithm's defaults and ``cell``'s
+    widths on ``device``; the offline learners are their algorithms, built
+    on a small dataset written under ``tmp``."""
+    from ray_tpu_torch import rllib
+
+    hid = cell["hiddens"]
+    if name == "sac":
+        c = rllib.SACConfig()
+        return rllib.SACLearner(
+            3, 1, actor_lr=c.lr, critic_lr=c.critic_lr, alpha_lr=c.alpha_lr,
+            gamma=c.gamma, tau=c.tau, action_scale=2.0,
+            initial_alpha=c.initial_alpha, target_entropy=-1.0,
+            hiddens=hid, seed=seed, device=device)
+    if name in ("td3", "ddpg"):
+        c = rllib.TD3Config() if name == "td3" else rllib.DDPGConfig()
+        return rllib.TD3Learner(
+            3, 1, actor_lr=c.lr, critic_lr=c.critic_lr, gamma=c.gamma,
+            tau=c.tau, action_scale=2.0, action_shift=0.0, twin_q=c.twin_q,
+            target_noise=c.target_noise,
+            target_noise_clip=c.target_noise_clip, hiddens=hid, seed=seed,
+            device=device)
+    if name == "r2d2":
+        c = rllib.R2D2Config()
+        return rllib.R2D2Learner(cell["obs"], cell["acts"], lr=c.lr,
+                                 gamma=c.gamma, burn_in=_RL2_BURN_IN,
+                                 hidden=cell["r2d2_hidden"], seed=seed,
+                                 device=device)
+    if name in ("bc", "cql", "marwil"):
+        import os
+
+        path = os.path.join(tmp, "dataset")
+        if not os.path.isdir(path):
+            rllib.save_batches(path, [rllib2_batch("bc", cell, seed + 7)])
+        cfg = {"bc": rllib.BCConfig, "cql": rllib.CQLConfig,
+               "marwil": rllib.MARWILConfig}[name]()
+        return (cfg.environment(cell["offline_env"])
+                .offline_data(input_path=path)
+                .training(model_hiddens=hid).resources(device=device)
+                .debugging(seed=seed).build())
+    if name == "dreamer":
+        from ray_tpu_torch.rllib.dreamer import DreamerLearner
+
+        return DreamerLearner(cell["obs"], cell["acts"], deter=cell["deter"],
+                              hidden=cell["dreamer_hidden"], seed=seed,
+                              device=device)
+    c = rllib.AlphaZeroConfig()
+    return rllib.AlphaZeroLearner(18, 9, hiddens=cell["az_hiddens"],
+                                  lr=c.lr, seed=seed, device=device)
+
+
+def rllib2_batch(name: str, cell: dict, seed: int):
+    """A fixed batch for ``name``'s learner, made by numpy from ``seed``."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import SampleBatch, make_env
+
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    if name in ("sac", "td3", "ddpg"):
+        B = cell["cont_batch"]
+        return SampleBatch({"obs": f32(B, 3),
+                            "actions": rng.uniform(-2, 2, (B, 1)).astype(
+                                np.float32),
+                            "rewards": f32(B), "dones": rng.random(B) < 0.05,
+                            "new_obs": f32(B, 3)})
+    if name == "r2d2":
+        S, T = cell["seqs"], _RL2_BURN_IN + _RL2_SEQ_LEN
+        return {"obs": f32(S, T, cell["obs"]),
+                "actions": rng.integers(0, cell["acts"], (S, T)),
+                "rewards": f32(S, T), "dones": rng.random((S, T)) < 0.02,
+                "reset": rng.random((S, T)) < 0.03,
+                "h0": 0.5 * f32(S, cell["r2d2_hidden"])}
+    if name in ("bc", "cql", "marwil"):
+        env = make_env(cell["offline_env"])
+        B, D = cell["offline_batch"], env.observation_dim
+        return SampleBatch({"obs": f32(B, D),
+                            "actions": rng.integers(0, env.num_actions, B),
+                            "rewards": f32(B), "dones": rng.random(B) < 0.05,
+                            "new_obs": f32(B, D)})
+    if name == "dreamer":
+        B, L = cell["B"], cell["L"]
+        return (f32(B, L, cell["obs"]),
+                rng.integers(0, cell["acts"], (B, L)), f32(B, L),
+                (rng.random((B, L)) > 0.02).astype(np.float32))
+    n = cell["az_batch"]
+    return (f32(n, 18), rng.dirichlet(np.ones(9), size=n).astype(np.float32),
+            rng.choice([-1.0, 0.0, 1.0], n).astype(np.float32))
+
+
+def rllib2_noise(name: str, cell: dict, seed: int):
+    """The draws one update of ``name`` takes, on the CPU from ``seed``:
+    standard normals for SAC's two actions and TD3's target smoothing,
+    Gumbel noise for Dreamer's categoricals; None for the others."""
+    import torch
+
+    from ray_tpu_torch.rllib.models import gumbel
+
+    gen = torch.Generator().manual_seed(seed)
+    if name == "sac":
+        B = cell["cont_batch"]
+        return [torch.randn((B, 1), generator=gen) for _ in range(2)]
+    if name in ("td3", "ddpg"):
+        return [torch.randn((cell["cont_batch"], 1), generator=gen)]
+    if name == "dreamer":
+        B, L, G, C, H = cell["B"], cell["L"], 8, 8, 15
+        return [gumbel((L, B, G, C), gen), gumbel((H, B * L, cell["acts"]),
+                                                  gen),
+                gumbel((H, B * L, G, C), gen)]
+    return None
+
+
+def _rl2_state(name: str, ln) -> dict:
+    """A numpy snapshot of everything one update changes."""
+    from ray_tpu_torch.rllib.models import to_numpy
+
+    if name in ("sac", "td3", "ddpg"):
+        return to_numpy(ln.state)
+    if name == "r2d2":
+        return {"params": to_numpy(ln.params)}
+    if name in ("bc", "cql", "marwil"):
+        out = {"params": to_numpy(ln.params)}
+        if name == "marwil":
+            out["ma_adv_sq"] = to_numpy(ln.ma_adv_sq)
+        return out
+    if name == "dreamer":
+        return to_numpy({k: ln._state[k] for k in ("wm", "ac", "target",
+                                                   "ret_scale")})
+    return {"params": to_numpy(ln._state[0])}
+
+
+def _rl2_step(name: str, ln, batch, noise) -> tuple:
+    """One update of ``ln`` on numpy ``batch`` with the CPU ``noise`` ->
+    (metrics as floats, {stage: grads}, extra): extra holds Dreamer's
+    posterior starts, which its second stage imagines from."""
+    import torch
+
+    from ray_tpu_torch.rllib import sac as SAC
+
+    dev = ln.device
+    nz = [x.to(dev) for x in noise] if noise is not None else None
+    extra = {}
+    if name == "sac":
+        m, g = ln.train_step(SAC.to_batch(batch, dev), *nz)
+        grads = {"critic": g["critic"], "actor": g["actor"],
+                 "alpha": g["alpha"]}
+    elif name in ("td3", "ddpg"):
+        b = SAC.to_batch(batch, dev)
+        closs, cg = ln.critic_step(b, nz[0])
+        aloss, ag = ln.actor_step(b)
+        m, grads = {"critic_loss": closs, "actor_loss": aloss}, {
+            "critic": cg, "actor": ag}
+    elif name == "r2d2":
+        loss, g = ln.train_step(ln._batch(batch))
+        m, grads = {"loss": loss}, {"params": g}
+    elif name in ("bc", "cql", "marwil"):
+        m, g = ln.train_step(ln.to_device(batch))
+        grads = {"params": g}
+    elif name == "dreamer":
+        b = ln.to_device(*batch)
+        F = torch.nn.functional
+        taken = F.one_hot(b[1], ln.num_actions).to(torch.float32)
+        act = torch.cat([torch.zeros_like(taken[:, :1]), taken[:, :-1]], 1)
+        with torch.no_grad():
+            hs, ss, _, _ = ln.observe(ln._state["wm"], b[0], act, nz[0])
+        extra = {"h0": hs.reshape(-1, ln.deter),
+                 "s0": ss.reshape(-1, ln.stoch)}
+        m, g = ln.train_step(*b, {"post": nz[0], "act": nz[1],
+                                  "img": nz[2]})
+        grads = {"wm": g["wm"], "ac": g["ac"]}
+    else:
+        m, g = ln.train_step(*(torch.as_tensor(x, device=dev)
+                               for x in batch))
+        grads = {"params": g}
+    return ({k: float(v) for k, v in m.items()}, grads, extra)
+
+
+def _rl2_second_stage(name: str, cpu, s0: dict, s1: dict, extra: dict,
+                      batch, noise) -> tuple:
+    """The CPU learner's second-stage loss at the inputs the card's second
+    stage saw (the card's state after its first stage, its posterior
+    starts) -> (metrics, {stage: grads}); empty for one-stage learners."""
+    import torch
+
+    from ray_tpu_torch.rllib import sac as SAC
+    from ray_tpu_torch.rllib.learner import value_and_grad
+    from ray_tpu_torch.rllib.models import params_from_numpy as P
+
+    if name == "sac":
+        alpha = torch.exp(P(s0["log_alpha"], "cpu"))
+        loss, logp, g = value_and_grad(
+            SAC.actor_loss, P(s0["actor"], "cpu"), P(s1["q1"], "cpu"),
+            P(s1["q2"], "cpu"), alpha, SAC.to_batch(batch, "cpu"),
+            noise[1], cpu.scale, cpu.shift)
+        return ({"actor_loss": float(loss),
+                 "entropy": float(-torch.mean(logp))},
+                {"actor": g, "alpha": -(torch.mean(logp)
+                                        + cpu.target_entropy)})
+    if name in ("td3", "ddpg"):
+        loss, _, g = value_and_grad(
+            cpu.actor_loss, P(s0["actor"], "cpu"), {"q1": P(s1["q1"], "cpu")},
+            SAC.to_batch(batch, "cpu"))
+        return {"actor_loss": float(loss)}, {"actor": g}
+    if name == "dreamer":
+        loss, aux, g = value_and_grad(
+            cpu.ac_loss, P(s0["ac"], "cpu"), P(s1["wm"], "cpu"),
+            P(s0["target"], "cpu"), P(s0["ret_scale"], "cpu"),
+            extra["h0"].cpu(), extra["s0"].cpu(), noise[1], noise[2])
+        cl, aol, ent, mret, new_scale = aux
+        return ({"critic_loss": float(cl), "actor_loss": float(aol),
+                 "entropy": float(ent), "imag_return_mean": float(mret),
+                 "ret_scale": float(0.99 * s0["ret_scale"]
+                                    + 0.01 * new_scale)}, {"ac": g})
+    return {}, {}
+
+
+def _rl2_moves(name: str, ln) -> list:
+    """Per piece of state one update moves: (state key, the grads that
+    moved it from a {stage: grads} dict, its Adam, the share of the step
+    it moves: tau or 0.02 for a Polyak or EMA target)."""
+    critic = lambda q: lambda g: g["critic"][q]  # noqa: E731
+    stage = lambda s: lambda g: g[s]  # noqa: E731
+    if name in ("sac", "td3", "ddpg"):
+        moves = [("q1", critic("q1"), ln.critic_tx, 1.0),
+                 ("q2", critic("q2"), ln.critic_tx, 1.0),
+                 ("tq1", critic("q1"), ln.critic_tx, ln.tau),
+                 ("tq2", critic("q2"), ln.critic_tx, ln.tau),
+                 ("actor", stage("actor"), ln.actor_tx, 1.0)]
+        if name == "sac":
+            return moves + [("log_alpha", stage("alpha"), ln.alpha_tx,
+                             1.0)]
+        return moves + [("t_actor", stage("actor"), ln.actor_tx, ln.tau)]
+    if name == "dreamer":
+        return [("wm", stage("wm"), ln.wm_tx, 1.0),
+                ("ac", stage("ac"), ln.ac_tx, 1.0),
+                ("target", stage("ac"), ln.ac_tx, 0.02)]
+    tx = ln.tx if hasattr(ln, "tx") else ln._opt
+    return [("params", stage("params"), tx, 1.0)]
+
+
+def rllib2_parity(name: str, cell: dict, seed: int) -> dict:
+    """``name``'s learner on the card against the same learner on the CPU
+    from the same carried state (params_from_numpy), on the same batch and
+    the same noise. The first stage's loss metrics and grads within
+    _RL_REL_TOL relative (|d|/|g| a leaf); the second stage's (SAC's and
+    TD3's actor, Dreamer's actor-critic) against the CPU's loss at the
+    inputs the card's second stage saw, within the same bars; the state
+    after the whole step within adam_first_step_bound of each side's own
+    grads (a target moving tau or 0.02 of its net's step, that share of
+    the bound). -> a row with the largest error beside each bar and
+    "ok"."""
+    import tempfile
+
+    import numpy as np
+
+    from ray_tpu_torch.rllib.models import params_from_numpy
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu = rllib2_learner(name, cell, seed, "cpu", tmp)
+        card = rllib2_learner(name, cell, seed, "cuda", tmp)
+    s0 = _rl2_state(name, cpu)
+    # the card's learner starts from the CPU's state, carried as numpy
+    if name in ("sac", "td3", "ddpg"):
+        card.state = params_from_numpy(s0, "cuda")
+    elif name == "r2d2":
+        card.set_weights(s0["params"])
+    elif name in ("bc", "cql", "marwil"):
+        card.params = params_from_numpy(s0["params"], "cuda")
+        if name == "cql":
+            card.target_params = params_from_numpy(s0["params"], "cuda")
+    elif name == "dreamer":
+        card._state.update(params_from_numpy(s0, "cuda"))
+    else:
+        card._state = (params_from_numpy(s0["params"], "cuda"),
+                       card._opt.init(params_from_numpy(s0["params"],
+                                                        "cuda")))
+    batch = rllib2_batch(name, cell, seed + 1)
+    noise = rllib2_noise(name, cell, seed + 2)
+    m_card, g_card, extra = _rl2_step(name, card, batch, noise)
+    s1_card = _rl2_state(name, card)
+    m_cpu, g_cpu, _ = _rl2_step(name, cpu, batch, noise)
+    s1_cpu = _rl2_state(name, cpu)
+    m2, g2 = _rl2_second_stage(name, cpu, s0, s1_card, extra, batch, noise)
+    first = {k: v for k, v in m_cpu.items() if k not in m2}
+    metric_rel = {k: _rl_rel(m_card[k], v) for k, v in first.items()}
+    metric_rel.update({f"stage2_{k}": _rl_rel(
+        m_card[k] if k != "ret_scale" else s1_card["ret_scale"], v)
+        for k, v in m2.items()})
+    grad_rel = {}
+    for stage, g in g_cpu.items():
+        ref = g2.get(stage, g)
+        grad_rel[stage] = _rl2_tree_rel(g_card[stage], ref)
+    # the state after the whole step
+    p_abs = share = 0.0
+    for key, grads_of, tx, frac in _rl2_moves(name, cpu):
+        ga, gb = _rl2_flat(grads_of(g_card)), _rl2_flat(grads_of(g_cpu))
+        bound = adam_first_step_bound(ga, gb, tx.learning_rate,
+                                      tx.grad_clip)
+        new_a, new_b = _rl2_flat(s1_card[key]), _rl2_flat(s1_cpu[key])
+        for leaf in new_b:
+            d = np.abs(new_a[leaf] - new_b[leaf])
+            b = _RL_ADAM_ABS + frac * (bound[leaf] - _RL_ADAM_ABS)
+            p_abs = max(p_abs, float(d.max()))
+            share = max(share, float((d / b).max()))
+    row = {"learner": name, "metric_max_rel": max(metric_rel.values()),
+           "metric_bar": _RL_REL_TOL, "metric_rel": metric_rel,
+           "grad_max_rel": max(grad_rel.values()), "grad_bar": _RL_REL_TOL,
+           "grad_rel": grad_rel, "param_max_abs": p_abs,
+           "param_max_share_of_bound": share}
+    if name == "marwil":
+        row["ma_adv_sq_rel"] = _rl_rel(s1_card["ma_adv_sq"],
+                                       s1_cpu["ma_adv_sq"])
+        metric_rel["ma_adv_sq"] = row["ma_adv_sq_rel"]
+        row["metric_max_rel"] = max(metric_rel.values())
+    if name == "dreamer":
+        # the card's own step imagines on its own updated world model,
+        # whose Adam-noise-band elements may differ from the CPU's: shown,
+        # not barred (the stage-2 check above holds it like for like)
+        row["own_step_ret_scale_rel"] = _rl_rel(s1_card["ret_scale"],
+                                                s1_cpu["ret_scale"])
+    row["ok"] = (row["metric_max_rel"] <= _RL_REL_TOL
+                 and row["grad_max_rel"] <= _RL_REL_TOL and share <= 1)
+    return row
+
+
+def _rl2_update_fn(name: str, ln, batch):
+    """A zero-argument update of ``ln`` through its own API (its own
+    draws), ending in host floats."""
+    if name in ("td3", "ddpg"):
+        return lambda: ln.update(batch, do_actor=True)
+    if name in ("sac", "r2d2"):
+        return lambda: ln.update(batch)
+    if name in ("bc", "cql", "marwil"):
+        dev = ln.to_device(batch)
+        return lambda: {k: float(v) for k, v in ln.train_step(dev)[0]
+                        .items()}
+    return lambda: ln.update(*batch)
+
+
+def _rl2_rows(name: str, cell: dict) -> int:
+    """Env steps one update consumes (Dreamer: B L replayed steps; R2D2:
+    its sequences' steps, burn-in included)."""
+    if name in ("sac", "td3", "ddpg"):
+        return cell["cont_batch"]
+    if name == "r2d2":
+        return cell["seqs"] * (_RL2_BURN_IN + _RL2_SEQ_LEN)
+    if name in ("bc", "cql", "marwil"):
+        return cell["offline_batch"]
+    if name == "dreamer":
+        return cell["B"] * cell["L"]
+    return cell["az_batch"]
+
+
+def rllib2_throughput(cell: dict, seed: int) -> dict:
+    """(b): each learner's ms per update on the card and the env-steps it
+    consumes a second; SAC's and Dreamer's update under the profiler
+    (launches, busy share); Dreamer's three loops (forward, each timed
+    alone) as shares of its update; Dreamer's act per env step."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in _RL2_LEARNERS:
+            ln = rllib2_learner(name, cell, seed, "cuda", tmp)
+            batch = rllib2_batch(name, cell, seed + 3)
+            fn = _rl2_update_fn(name, ln, batch)
+            ms = _rl_sync_ms(fn, 3 if name == "dreamer" else 10)
+            rows = _rl2_rows(name, cell)
+            out[name] = {"rows": rows, "ms_per_update": ms,
+                         "env_steps_per_s": rows / (ms / 1e3)}
+            if name in ("sac", "dreamer"):
+                prof = _step_profile(fn)
+                dev_ms = prof["device_ms"]
+                prof["device_busy_share_of_update"] = (
+                    dev_ms / ms if isinstance(dev_ms, float) else dev_ms)
+                out[f"{name}_profile"] = prof
+            if name == "dreamer":
+                out["dreamer_loops"] = _rl2_dreamer_loops(ln, batch, ms)
+                pol = ln.init_policy_state()
+                obs = np.random.default_rng(seed).normal(
+                    size=cell["obs"]).astype(np.float32)
+
+                def act():
+                    nonlocal pol
+                    pol, _ = ln.act(pol, obs)
+
+                out["dreamer_act_ms_per_env_step"] = _rl_sync_ms(act, 50)
+            del ln
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rl2_dreamer_loops(ln, batch, update_ms: float) -> dict:
+    """The posterior unroll (L steps), the imagination (H steps) and the
+    lambda-return recursion (H-1 steps) of one update, each run alone as
+    a forward without grad: ms and share of the update's ms."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.rllib.dreamer import mlp
+
+    b = ln.to_device(*batch)
+    B, L = b[1].shape
+    noise = ln.draw_noise(B, L)
+    taken = F.one_hot(b[1], ln.num_actions).to(torch.float32)
+    act = torch.cat([torch.zeros_like(taken[:, :1]), taken[:, :-1]], 1)
+    st = ln._state
+    out = {}
+    with torch.no_grad():
+        hs, ss, _, _ = ln.observe(st["wm"], b[0], act, noise["post"])
+        h0, s0 = hs.reshape(-1, ln.deter), ss.reshape(-1, ln.stoch)
+        feats, _, _ = ln.imagine(st["wm"], st["ac"], h0, s0, noise["act"],
+                                 noise["img"])
+        rew = mlp(st["wm"], "rew1", "rew2", feats)[..., 0]
+        disc = ln.gamma * torch.sigmoid(
+            mlp(st["wm"], "cont1", "cont2", feats)[..., 0])
+        tv = mlp(st["target"], "critic1", "critic2", feats)[..., 0]
+        for key, fn in (
+                ("observe", lambda: ln.observe(st["wm"], b[0], act,
+                                               noise["post"])),
+                ("imagine", lambda: ln.imagine(st["wm"], st["ac"], h0, s0,
+                                               noise["act"], noise["img"])),
+                ("lambda_returns", lambda: ln.lambda_returns(rew, disc,
+                                                             tv))):
+            ms = _rl_sync_ms(fn, 5)
+            out[key] = {"ms": ms, "share_of_update": ms / update_ms}
+    out["steps"] = {"observe": L, "imagine": ln.horizon,
+                    "lambda_returns": ln.horizon - 1}
+    return out
+
+
+def _rl2_builders(seed: int) -> dict:
+    """(c)'s algorithms with actors, as zero-argument builders."""
+    import chip_smoke as CS  # by reference, not as __main__
+    from ray_tpu_torch import rllib
+
+    return {
+        # SAC at tests/test_rllib_sac.py:184-205
+        "sac": lambda: (
+            rllib.SACConfig().environment("Pendulum-v1")
+            .rollouts(num_rollout_workers=1, num_envs_per_worker=8,
+                      rollout_fragment_length=32)
+            .training(train_batch_size=128, num_updates_per_iter=48,
+                      num_steps_sampled_before_learning_starts=512,
+                      lr=1e-3, critic_lr=1e-3, alpha_lr=1e-3)
+            .debugging(seed=seed).build()),
+        # Ape-X: 2 CPU workers, 2 replay shards
+        "apex": lambda: (
+            rllib.ApexDQNConfig().environment("CartPole-v1").rollouts(
+                num_rollout_workers=2, num_envs_per_worker=4,
+                rollout_fragment_length=32).debugging(seed=seed).build()),
+        "multi_agent": lambda: rllib.MultiAgentPPO(
+            CS._TwoGuess, policies=["p0", "p1"],
+            policy_mapping_fn=CS._two_guess_policy, num_rollout_workers=2,
+            rollout_len=64, lr=1e-2, seed=seed),
+        "alphazero": lambda: (
+            rllib.AlphaZeroConfig().rollouts(num_rollout_workers=2)
+            .training(mcts_sims=32, games_per_worker=6)
+            .debugging(seed=seed).build()),
+    }
+
+
+def _rl2_build(fn):
+    t0 = time.perf_counter()
+    return fn(), time.perf_counter() - t0
+
+
+def rllib2_dreamer_task() -> tuple:
+    """DreamerV3 on CartPole in a num_gpus=1 task (fp32, TF32 off, as in
+    the driver) -> (row, checks)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    row, checks = {}, {}
+    t0 = time.perf_counter()
+    _rl2_dreamer(row, checks)
+    row["dreamer"]["task_s"] = time.perf_counter() - t0
+    return row, checks
+
+
+def rllib2_end_to_end(seed: int) -> dict:
+    """(c) on the runtime the caller started: SAC on Pendulum, DreamerV3
+    on CartPole (both to the reference tests' bars), Ape-X, MultiAgentPPO,
+    AlphaZero, CQL and MARWIL, every learner on the card. Each is
+    host-bound in one Python thread, so DreamerV3, which has no actors,
+    runs in a num_gpus=1 task (its own process: acting and learning on
+    the card as in a driver) while the others run here, one after
+    another; the actors of SAC, Ape-X, MultiAgentPPO and AlphaZero (9,
+    one CPU lease each, the replay shards half of one) start together in
+    threads: each actor's import of torch costs 10-15 s."""
+    import concurrent.futures as cf
+
+    import chip_smoke as CS  # by reference, not as __main__
+    import ray_tpu_torch as rt
+
+    row, checks, algos = {}, {}, {}
+    t0 = time.perf_counter()
+    dreamer = rt.remote(CS.rllib2_dreamer_task).options(
+        num_cpus=0, num_gpus=1).remote()
+    pool = cf.ThreadPoolExecutor(4)
+    futs = {k: pool.submit(_rl2_build, fn)
+            for k, fn in _rl2_builders(seed).items()}
+    try:
+        for k, f in futs.items():
+            algos[k], row[f"{k}_build_s"] = f.result(timeout=600)
+        _rl2_sac(algos["sac"], row, checks)
+        _rl2_apex(algos["apex"], row, checks)
+        _rl2_multi_agent(algos["multi_agent"], row, checks)
+        _rl2_alphazero(algos["alphazero"], row, checks)
+        _rl2_offline(seed, row, checks)
+        row["others_s"] = time.perf_counter() - t0
+        d_row, d_checks = rt.get(dreamer, timeout=900)
+        row.update(d_row)
+        checks.update(d_checks)
+    finally:
+        for k, f in futs.items():
+            if k not in algos and f.exception(timeout=600) is None:
+                algos[k] = f.result()[0]
+        pool.shutdown()
+        for algo in algos.values():
+            algo.cleanup()  # a Trainable's stop(); MultiAgentPPO's own
+    row["checks"] = checks
+    return row
+
+
+def _rl2_dreamer(row: dict, checks: dict):
+    """DreamerV3 at tests/test_rllib_dreamer.py:99-115."""
+    from ray_tpu_torch import rllib
+
+    t0 = time.perf_counter()
+    algo = (rllib.DreamerV3Config().training(updates_per_iter=16)
+            .debugging(seed=1).build())
+    try:
+        early, iters = None, []
+        for i in range(_RL2_DREAMER_ITERS):
+            ti = time.perf_counter()
+            m = algo.step()
+            iters.append(time.perf_counter() - ti)
+            if i == 4:
+                early = m.get("episode_reward_mean", 0.0)
+        final = m["episode_reward_mean"]
+        row["dreamer"] = {"early": early, "final": final,
+                          "train_s": time.perf_counter() - t0,
+                          "iteration_s_first_last": [iters[0], iters[-1]],
+                          "learner_device": str(algo.learner.device)}
+        checks["dreamer_final_over_60"] = final > _RL2_DREAMER_BAR
+        checks["dreamer_final_over_early_plus_20"] = (
+            final > early + _RL2_DREAMER_GAIN)
+        checks["dreamer_learner_on_card"] = (algo.learner.device.type
+                                             == "cuda")
+    finally:
+        algo.stop()
+
+
+def _rl2_sac(algo, row: dict, checks: dict):
+    """SAC until its best episode_reward_mean reaches the bar, at most
+    _RL2_SAC_ITERS iterations (the reference test runs on to -750: its
+    verdict is the same, reached later)."""
+    best, it, t0 = -1e9, 0, time.perf_counter()
+    for it in range(1, _RL2_SAC_ITERS + 1):
+        r = algo.train()
+        best = max(best, r.get("episode_reward_mean", -1e9))
+        if best >= _RL2_SAC_BAR:
+            break
+    row["sac"] = {"best_episode_reward_mean": best, "iterations": it,
+                  "train_s": time.perf_counter() - t0,
+                  "learner_device": r["learner_device"],
+                  "env_steps_per_s_last": r["env_steps_per_sec"]}
+    checks["sac_reaches_minus_900"] = best >= _RL2_SAC_BAR
+    checks["sac_learner_on_card"] = r["learner_device"] == "cuda"
+    checks["sac_weights_synced"] = _rl_weights_equal(algo)
+
+
+def _rl2_apex(algo, row: dict, checks: dict):
+    """Ape-X until its shards fill, then _RL2_APEX_ITERS learning
+    iterations."""
+    import ray_tpu_torch as rt
+
+    fill, learned, t0 = 0, 0, time.perf_counter()
+    while learned < _RL2_APEX_ITERS and fill < 50:
+        r = algo.train()
+        if "loss" in r:
+            learned += 1
+        else:
+            fill += 1
+    prios = rt.get([s.priority_stats.remote() for s in algo.replay_shards],
+                   timeout=120)
+    row["apex"] = {"fill_iterations": fill, "learning_iterations": learned,
+                   "train_s": time.perf_counter() - t0,
+                   "replay_size": r["replay_size"], "shards": prios,
+                   "learner_device": r["learner_device"]}
+    checks["apex_replay_filled"] = r["replay_size"] > 0
+    checks["apex_learned"] = learned == _RL2_APEX_ITERS
+    checks["apex_priorities_reach_shards"] = all(
+        p["max_priority"] != 1.0 and p["total"] != p["size"] for p in prios)
+    checks["apex_weights_synced"] = _rl_weights_equal(algo)
+    checks["apex_learner_on_card"] = r["learner_device"] == "cuda"
+
+
+def _rl2_multi_agent(ma, row: dict, checks: dict):
+    """MultiAgentPPO with two policies for 2 iterations."""
+    t0 = time.perf_counter()
+    outs = [ma.train() for _ in range(2)]
+    row["multi_agent"] = {"s": time.perf_counter() - t0,
+                          "env_steps": outs[-1]["env_steps"],
+                          "devices": {p: str(ln.device) for p, ln in
+                                      ma.learners.items()}}
+    checks["multi_agent_learners_on_card"] = all(
+        ln.device.type == "cuda" for ln in ma.learners.values())
+    checks["multi_agent_two_policies"] = set(ma.get_weights()) == {"p0",
+                                                                   "p1"}
+
+
+def _rl2_alphazero(algo, row: dict, checks: dict):
+    """AlphaZero with 2 self-play workers for 2 iterations; the workers'
+    weights equal the learner's bit for bit."""
+    import numpy as np
+
+    import ray_tpu_torch as rt
+
+    t0 = time.perf_counter()
+    outs = [algo.step() for _ in range(2)]
+    w = algo.learner.get_weights()
+    synced = all(
+        ww is not None and set(ww) == set(w)
+        and all(np.array_equal(ww[k], w[k]) for k in w)
+        for ww in rt.get([x.get_weights.remote() for x in algo.workers],
+                         timeout=120))
+    row["alphazero"] = {"s": time.perf_counter() - t0,
+                        "replay_size": outs[-1]["replay_size"],
+                        "total_loss": outs[-1]["total_loss"],
+                        "learner_device": str(algo.learner.device)}
+    checks["alphazero_learner_on_card"] = (algo.learner.device.type
+                                           == "cuda")
+    checks["alphazero_workers_synced"] = synced
+
+
+def _rl2_offline(seed: int, row: dict, checks: dict):
+    """CQL and MARWIL, 64 updates each on a logged CartPole dataset."""
+    import tempfile
+
+    from ray_tpu_torch import rllib
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rllib.collect_dataset("CartPole-v1", tmp,
+                              num_steps=_RL2_DATASET_STEPS, epsilon=0.3,
+                              seed=seed)
+        row["dataset_s"] = time.perf_counter() - t0
+        for name, cfg in (("cql", rllib.CQLConfig()),
+                          ("marwil", rllib.MARWILConfig())):
+            algo = (cfg.environment("CartPole-v1")
+                    .offline_data(input_path=tmp).debugging(seed=seed)
+                    .build())
+            try:
+                t0 = time.perf_counter()
+                m = algo.training_step()
+                row[name] = {"updates":
+                             algo.algo_config.num_updates_per_iter,
+                             "s": time.perf_counter() - t0,
+                             "dataset_size": algo.dataset.count,
+                             "metrics": m, "device": str(algo.device)}
+                checks[f"{name}_on_card_finite"] = (
+                    algo.device.type == "cuda" and algo.dataset.count
+                    == _RL2_DATASET_STEPS and all(
+                        math.isfinite(v) for v in m.values()))
+            finally:
+                algo.stop()
+
+
+class _TwoGuess:
+    """Two agents, 1-step episodes: each sees [sign, noise] and earns 1.0
+    for matching its own sign (tests/test_rllib.py's multi-agent env)."""
+
+    agent_ids = ("a0", "a1")
+    observation_dim = 2
+    num_actions = 2
+    max_episode_steps = 1
+
+    def __init__(self):
+        import numpy as np
+
+        self._rng = np.random.default_rng(0)
+
+    def _obs_one(self):
+        import numpy as np
+
+        sign = 1.0 if self._rng.random() < 0.5 else -1.0
+        return np.array([sign, self._rng.random()], np.float32)
+
+    def reset(self, seed=None):
+        import numpy as np
+
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._cur = {a: self._obs_one() for a in self.agent_ids}
+        return dict(self._cur)
+
+    def step(self, actions):
+        rewards = {}
+        for a, act in actions.items():
+            want = 1 if self._cur[a][0] > 0 else 0
+            rewards[a] = 1.0 if act == want else 0.0
+        dones = {a: True for a in actions}
+        dones["__all__"] = True
+        self._cur = {a: self._obs_one() for a in self.agent_ids}
+        return dict(self._cur), rewards, dones, {}
+
+
+def _two_guess_policy(agent: str) -> str:
+    return "p0" if agent == "a0" else "p1"
+
+
+def phase_rllib2(seed: int):
+    """The port's RLlib, part 2, on the card (the module's docstring,
+    rllib2)."""
+    import torch
+
+    import ray_tpu_torch as rt
+
+    row = {"phase": "rllib2", "card": _nvidia_smi(),
+           "cell": {**_RL2_CELL, "burn_in": _RL2_BURN_IN,
+                    "seq_len": _RL2_SEQ_LEN, "dtype": "float32",
+                    "tf32": False}}
+    checks = {}
+    t0 = time.perf_counter()
+    row["parity"] = [rllib2_parity(n, _RL2_CELL, seed)
+                     for n in _RL2_LEARNERS]
+    row["parity_s"] = time.perf_counter() - t0
+    for p in row["parity"]:
+        checks[f"parity_{p['learner']}"] = p["ok"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    row["throughput"] = rllib2_throughput(_RL2_CELL, seed)
+    row["throughput_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rt.init(num_cpus=8)
+    try:
+        e2e = rllib2_end_to_end(seed)
+    finally:
+        rt.shutdown()
+    row["end_to_end_s"] = time.perf_counter() - t0
+    checks.update(e2e.pop("checks"))
+    row["end_to_end"] = e2e
+    for _ in range(100):
+        left = _workers_left()
+        if not left:
+            break
+        time.sleep(0.1)
+    row["workers_left"] = left
+    checks["no_worker_left"] = not left
+    row["checks"] = checks
+    row["ok"] = all(checks.values())
+    _emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"rllib2 phase failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+
+
 def _active_flops_per_token(cfg, seq: int) -> float:
     """Training FLOPs a token needs in the MoE model: 6 x the parameters
     it multiplies by (q/k/v/o projections, the router, its k experts'
@@ -3829,6 +4670,8 @@ def run(seed: int) -> int:
                              TR, C, seed)
     torch.cuda.empty_cache()
     attempt("rllib", phase_rllib, seed)
+    torch.cuda.empty_cache()
+    attempt("rllib2", phase_rllib2, seed)
     _emit({"script_wall_s": time.perf_counter() - t_script})
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)

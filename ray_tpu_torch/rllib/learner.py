@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.models.training import AdamW
+from ray_tpu_torch.models.training import (AdamW, _unflatten, tree_leaves,
+                                           tree_map)
 
 from . import sample_batch as SB
 from .models import (Params, entropy_of, forward, init_actor_critic, logp_of,
@@ -33,6 +34,37 @@ def adam(lr: float, grad_clip: Optional[float] = None) -> AdamW:
     ``optax.adam(lr)`` alone when ``grad_clip`` is None."""
     return AdamW(lr, weight_decay=0.0, b1=0.9, b2=0.999, eps=1e-8,
                  grad_clip=grad_clip, mu_dtype=None)
+
+
+def value_and_grad(fn, tree, *args):
+    """``jax.value_and_grad(fn, has_aux=True)(tree, *args)`` for a tree
+    (nested dicts, or one tensor) of leaves: -> (loss, aux, grads), the
+    loss and aux detached, grads in ``tree``'s structure, contiguous; a
+    leaf the loss leaves out gets zeros."""
+    live = tree_map(lambda v: v.detach().requires_grad_(True), tree)
+    with torch.enable_grad():
+        loss, aux = fn(live, *args)
+        grads = torch.autograd.grad(loss, tree_leaves(live),
+                                    materialize_grads=True)
+    return loss.detach(), detached(aux), _unflatten(
+        tree, [g.contiguous() for g in grads])
+
+
+def detached(tree):
+    """Every tensor of a tree (dicts, tuples, lists) detached."""
+    if isinstance(tree, dict):
+        return {k: detached(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(detached(v) for v in tree)
+    return tree.detach() if isinstance(tree, torch.Tensor) else tree
+
+
+def huber(err: torch.Tensor) -> torch.Tensor:
+    """``optax.huber_loss`` at delta 1 of an error (predictions minus
+    targets), per element."""
+    abs_err = torch.abs(err)
+    quadratic = torch.clamp(abs_err, max=1.0)
+    return 0.5 * quadratic ** 2 + (abs_err - quadratic)
 
 
 def normalized(adv: torch.Tensor) -> torch.Tensor:

@@ -22,20 +22,48 @@ from ray_tpu_torch._device import resolve_device
 Params = Dict[str, torch.Tensor]
 
 
-def params_from_numpy(tree: Dict[str, np.ndarray], device=None) -> Params:
+def params_from_numpy(tree, device=None):
     """The reference's numpy params (or weights a learner sent) -> the
     port's: same names and shapes, one copy per leaf, on ``device`` (CUDA
-    unless the caller asks for the CPU). Conv kernels stay HWIO."""
+    unless the caller asks for the CPU). Nested dicts (SAC's and TD3's
+    nets, Dreamer's ``{"w", "b"}`` layers) keep their nesting; a numpy
+    scalar (SAC's ``log_alpha``) becomes a 0-d tensor. Conv kernels stay
+    HWIO."""
     dev = resolve_device(device)
-    return {k: torch.from_numpy(np.array(v, copy=True)).to(dev)
-            for k, v in tree.items()}
+    return _from_numpy(tree, dev)
 
 
-def to_numpy(params: Params) -> Dict[str, np.ndarray]:
+def _from_numpy(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _from_numpy(v, dev) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, copy=True)).to(dev)
+
+
+def to_numpy(params):
     """A snapshot as numpy: copies, never views of tensors that a later
-    in-place step would change (CPU tensors share memory with .numpy())."""
-    return {k: v.detach().to("cpu", copy=True).numpy()
-            for k, v in params.items()}
+    in-place step would change (CPU tensors share memory with .numpy());
+    nested dicts keep their nesting."""
+    if isinstance(params, dict):
+        return {k: to_numpy(v) for k, v in params.items()}
+    return params.detach().to("cpu", copy=True).numpy()
+
+
+def clone_tree(tree):
+    """A copy of every leaf (``jax.tree.map(jnp.copy, ...)``)."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+@torch.no_grad()
+def polyak_(target, online, tau: float):
+    """target <- tau online + (1 - tau) target, leaf by leaf in place (a
+    Polyak or EMA target net)."""
+    for k in target:
+        if isinstance(target[k], dict):
+            polyak_(target[k], online[k], tau)
+        else:
+            target[k].copy_(tau * online[k] + (1.0 - tau) * target[k])
 
 
 def _to(params: Params, device) -> Params:
@@ -188,3 +216,17 @@ def entropy_of(logits: torch.Tensor) -> torch.Tensor:
 def seeded(seed: int) -> torch.Generator:
     """The CPU generator an init draws from."""
     return torch.Generator().manual_seed(int(seed))
+
+
+def gumbel(shape, gen: torch.Generator, device=None) -> torch.Tensor:
+    """Standard Gumbel noise -log(E), E ~ Exp(1), drawn on ``gen``."""
+    e = torch.empty(shape, device=device or gen.device)
+    return -torch.log(e.exponential_(generator=gen))
+
+
+def categorical_from_gumbel(logits: torch.Tensor, g: torch.Tensor
+                            ) -> torch.Tensor:
+    """A categorical draw over the last axis on given Gumbel noise:
+    ``jax.random.categorical(key, logits)`` is ``argmax(gumbel(key,
+    logits.shape) + logits)``, so the same noise gives the same draw."""
+    return torch.argmax(g + logits, dim=-1)

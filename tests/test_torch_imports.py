@@ -43,7 +43,9 @@ def test_port_imports_no_jax_and_no_reference_package():
             *(f"ray_tpu_torch.rllib.{m}" for m in (
                 "sample_batch", "env", "connectors", "replay_buffers",
                 "models", "catalog", "policy", "learner", "rollout_worker",
-                "algorithm", "ppo", "impala", "appo", "a2c", "dqn"))
+                "algorithm", "ppo", "impala", "appo", "a2c", "dqn",
+                "apex_dqn", "sac", "td3", "r2d2", "multi_agent", "offline",
+                "bandits", "es", "ars", "dreamer", "alpha_zero"))
             } <= set(mods)
     code = (
         "import importlib, json, sys\n"
@@ -158,12 +160,42 @@ def test_entry_points_without_device_raise_instead_of_using_cpu(no_cuda):
                  lambda: params_from_numpy({"w0": np.zeros((4, 2))})):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
+    # part 2's learners
+    from ray_tpu_torch.rllib.dreamer import DreamerLearner
+
+    cont = dict(actor_lr=1e-3, critic_lr=1e-3, gamma=0.99, tau=0.005,
+                action_scale=2.0)
+    for make in (lambda: rllib.SACLearner(3, 1, alpha_lr=1e-3,
+                                          initial_alpha=0.2,
+                                          target_entropy=-1.0, **cont),
+                 lambda: rllib.TD3Learner(3, 1, action_shift=0.0,
+                                          twin_q=True, target_noise=0.2,
+                                          target_noise_clip=0.5, **cont),
+                 lambda: rllib.R2D2Learner(4, 2, lr=1e-3, gamma=0.99,
+                                           burn_in=2),
+                 lambda: DreamerLearner(4, 2),
+                 lambda: rllib.AlphaZeroLearner(18, 9)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
     import ray_tpu_torch
     assert not ray_tpu_torch.is_initialized()
-    # Algorithm.setup resolves the device before it starts a worker: the
-    # runtime is never reached
+    # Algorithm.setup (and each algorithm's own setup) resolves the device
+    # before it starts a worker: the runtime is never reached
+    for config in (rllib.PPOConfig(), rllib.SACConfig(), rllib.TD3Config(),
+                   rllib.DDPGConfig(), rllib.R2D2Config(),
+                   rllib.ApexDQNConfig(), rllib.DreamerV3Config(),
+                   rllib.AlphaZeroConfig(), rllib.ESConfig(),
+                   rllib.ARSConfig()):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            config.build()
+    # the offline algorithms, before they read their dataset
+    for config in (rllib.BCConfig(), rllib.CQLConfig(),
+                   rllib.MARWILConfig()):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            config.offline_data(input_path="/nonexistent").build()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        rllib.PPOConfig().build()
+        rllib.MultiAgentPPO(lambda: None, policies=["p0"],
+                            policy_mapping_fn=lambda agent: "p0")
     assert not ray_tpu_torch.is_initialized()
     w = rllib.RolloutWorker("CartPole-v1", 2, 4, 0.99, 0.95)
     assert w.policy.device.type == "cpu"
@@ -177,3 +209,21 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                          timeout=120, env=env)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_rllib_exports_every_name_of_the_reference():
+    """ray_tpu_torch.rllib.__all__ holds every name of ray_tpu.rllib's
+    (read from the file's text: the reference imports JAX), TorchPolicy
+    standing for JaxPolicy."""
+    import ast
+
+    from ray_tpu_torch import rllib
+
+    tree = ast.parse((_ROOT / "ray_tpu" / "rllib" / "__init__.py"
+                      ).read_text())
+    ref = next(ast.literal_eval(node.value) for node in tree.body
+               if isinstance(node, ast.Assign)
+               and node.targets[0].id == "__all__")
+    want = {"TorchPolicy" if n == "JaxPolicy" else n for n in ref}
+    assert want <= set(rllib.__all__), sorted(want - set(rllib.__all__))
+    assert all(hasattr(rllib, n) for n in rllib.__all__)

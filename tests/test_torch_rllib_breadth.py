@@ -1,7 +1,7 @@
 """The port's RLlib under the reference's tests/test_rllib_breadth.py:
 BreakoutMini (the MinAtar-class env) and APPO's learning run, at its
-thresholds with the learner on the CPU. ES, bandits and the offline
-algorithms wait for their ports.
+thresholds with the learner on the CPU. ES, the bandits and the offline
+algorithms are in tests/test_torch_rllib_offline.py.
 """
 
 import numpy as np
