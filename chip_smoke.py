@@ -68,8 +68,9 @@ phase:
   moe_forward  the 16-layer MoE model's forward at [4, 2048] bf16 through
             B1 (launches counted), against plain attention as distances from
             the fp32 forward; tokens that route differently
-  moe_serving  the bf16 16-layer MoE model under serve_forever at
-            bench_serve.py's settings, as phase serving
+  moe_serving  the bf16 MoE model at 4 layers (moe_engine's and
+            moe_train's) under serve_forever at bench_serve.py's settings,
+            as phase serving
   moe_engine   the MoE model at 4 layers in fp32, the engine token for token
             against generate() on prompts that fill their bucket (no pads)
   moe_train    the MoE model at 4 layers, batch 4 x 2048, bf16, remat: the
@@ -105,38 +106,60 @@ phase:
             each against the fp32 step; five optimizer steps through the
             kernels with their launches counted; ms per step, tokens/s, MFU,
             peak memory and the device's busy share
-  trainer   the train cell through the port's Train library, after the
-            driver's state is freed: ray_tpu_torch.train.TorchTrainer with
-            one num_gpus=1 worker (trainer_loop) builds the state from
-            --seed, runs steps 1-5 reporting each loss, B1-B3 launches and
-            wall, reports the whole state as a checkpoint at step 3 (to the
-            driver through the object plane, then to disk) and fails once
-            after step 4's report; the gang restart reads the step-3
-            checkpoint back onto the card in a new worker and runs steps
-            4-5. Checks: no error; the worker sees GPU 0 alone; 32/16/16
-            launches every step; six reports (steps 1, 2, 3, 4, 4, 5); the
-            losses equal phase train's, and the restart's step 4 the first
-            attempt's, within 1e-6 relative; the kept checkpoint's per-leaf
+  trainer   the train cell at 4 of its 16 layers (full width) through
+            the port's Train library, after the driver's state is freed:
+            the driver runs the cut cell's five steps first, then
+            ray_tpu_torch.train.TorchTrainer with one num_gpus=1 worker
+            (trainer_loop) builds the state from --seed, runs steps 1-5
+            reporting each loss, B1-B3 launches and wall, reports the whole
+            state as a checkpoint at step 3 (to the driver through the
+            object plane, then to disk) and fails once after step 4's
+            report; the gang restart reads the step-3 checkpoint back onto
+            the card in a new worker and runs steps 4-5. Checks: no error;
+            the worker sees GPU 0 alone; 8/4/4 launches every step; six
+            reports (steps 1, 2, 3, 4, 4, 5); the losses equal the
+            driver's, and the restart's step 4 the first attempt's, within
+            1e-6 relative; the kept checkpoint's per-leaf
             checksums equal the step-3 state's; no worker left. Numbers:
             the worker's start split, ms per step, peak memory, the
             checkpoint's bytes and seconds (device to host, the report to
             the driver, the write) and the restart's split
-  train_pipeline  the train cell as the port's MPMD pipeline
-            (ray_tpu_torch.train.Pipeline) on a cluster_utils.Cluster whose
-            head has no GPU and whose four logical nodes each declare one
-            (all lease the card as GPU 0): 4 num_gpus=1 stage actors of 4
-            layers (LlamaStage: the embedding on the first, the final norm
+  data      a shuffled Dataset feeding the train cell through the port's
+            Data library: 1,024 rows of an int64 id and 2,049 int32 tokens
+            (8.4 MB, numpy from --seed) in 16 blocks through
+            ray_tpu_torch.data.from_numpy, random_shuffle(seed) through the
+            pipelined exchange, a TorchTrainer with one num_gpus=1 worker
+            (data_trainer_loop) and datasets={"train": ...}, so the dataset
+            reaches it through streaming_split. The worker builds phase
+            train's cell from --seed, takes iter_torch_batches(batch_size=4)
+            with no device (the port's default, CUDA), runs 5 train steps
+            on the first 5 batches (inputs tokens[:, :-1], targets
+            tokens[:, 1:]) and drains the rest of the epoch onto the card.
+            Checks: no error; the worker sees GPU 0 alone; every batch on
+            cuda:0; 32/16/16 launches each step; finite losses; every id
+            once, in the order the driver gets from the same plan; each
+            row's tokens bitwise (checksums); data_shuffle_summary shows
+            both exchanges; no worker left. Numbers: the shuffle's seconds
+            and rows/s, the worker's start, each batch's wait beside its
+            step's ms and the step's ms beside phase train's (the same
+            cell) and phase trainer's (4 layers), the drain's batches/s and
+            host-to-device GB/s, the phase's wall
+  train_pipeline  the train cell at 4 of its 16 layers (full width) as
+            the port's MPMD pipeline (ray_tpu_torch.train.Pipeline) on a
+            cluster_utils.Cluster whose head has no GPU and whose four
+            logical nodes each declare one (all lease the card as GPU 0): 4
+            num_gpus=1 stage actors of 1 layer (LlamaStage: the embedding on the first, the final norm
             and the tied head on the last; the table and the head are two
             stage params), 4 microbatches of [1, 2048], GPipe then 1F1B on
-            one set of actors; elastic checkpoints off. Then 2 stages of 8
+            one set of actors; elastic checkpoints off. Then 2 stages of 2
             layers x 2 replicas (1F1B), one replica a node, whose bf16 CUDA
             grads sum through ray_tpu_torch.collective. Checks: every stage
             actor leases GPU 0 and sees one device; GPipe's and 1F1B's
             loss and each stage's grads within 1e-6 relative of
             single_program_reference run here on the card, folding the
             microbatches in the schedule's backward order (expected
-            bitwise), the two embedding copies each; B1/B2/B3 16/16/16 a
-            batch in each stage actor (4 layers x 4 microbatches, and 8 x 2
+            bitwise), the two embedding copies each; B1/B2/B3 4/4/4 a
+            batch in each stage actor (1 layer x 4 microbatches, and 2 x 2
             in the 2 x 2 run), counted there and read through probe(); the
             2 x 2 run's grads within _TPIPE_DP_BOUND of its oracle, per
             element, and its two replicas' grads equal bit for bit; no
@@ -145,7 +168,8 @@ phase:
             (the bubble) and arg_fetch (the hop) from the phase rows, the
             stage actors' start, the grads' fetch, the oracle's wall, the
             card's peak use, the 2 x 2 run's all-reduce seconds, the
-            embedding copies' sum against phase train's tied gradient
+            embedding copies' sum against the whole batch's tied
+            gradient
   rllib     the port's RLlib (ray_tpu_torch.rllib), fp32, TF32 off, at
             bench_rllib.py's cell (Breakout-Mini-v0: obs 400, 3 actions,
             hiddens (256, 256)): (a) PPO (batch 4096), IMPALA and APPO (T =
@@ -355,6 +379,26 @@ _TRAINER_DISK_BYTES = 16 << 30
 _TRAINER_CKPT_STEP = 3
 _TRAINER_FAIL_STEP = 4
 _TRAINER_REL_TOL = 1e-6
+# the trainer's cell is cut to 4 of llama3-1b's 16 layers (full width):
+# its checkpoint (3.0 GB, against 7.4 GB at 16) and restart set the
+# phase's wall, and the script must leave room for phase data within its
+# time limit. Per step: B1 twice a layer (forward and remat), B2, B3 once
+_TRAINER_LAYERS = 4
+_TRAINER_LAUNCHES = {"flash_fwd": 2 * _TRAINER_LAYERS,
+                     "flash_bwd_dq": _TRAINER_LAYERS,
+                     "flash_bwd_dkv": _TRAINER_LAYERS}
+# data: a pre-tokenized shard of 1,024 rows (an int64 id, 2,049 int32
+# tokens below the vocabulary; 8.4 MB) in 16 blocks, random_shuffle(seed)
+# through the pipelined exchange, streaming_split to one num_gpus=1
+# TorchTrainer worker whose iter_torch_batches(batch_size=4) has no device
+# (CUDA): 5 train steps of phase train's cell on the first 5 batches, then
+# the rest of the epoch drained onto the card
+_DATA_ROWS = 1024
+_DATA_BLOCKS = 16
+_DATA_SEQ = 2049
+_DATA_BATCH = 4
+_DATA_STEPS = 5
+_DATA_STORE_BYTES = 2 << 30
 # serve: phase engine's prompt lengths and new tokens (its fp32 check), and
 # the 8 warm-up requests the bf16 replica serves before the timed ones
 # (phase serving warms its engine up in process; a replica cannot be)
@@ -380,9 +424,16 @@ _AXIS_LAUNCHES = {
 # unit roundoff u = 2^-8 per bf16 add: 2 adds' worth (2u sum|g_i|) against
 # 3 (3u sum|g_i|), so per element |dp - oracle| <= 5u sum_i|g_i| / M to
 # first order; 1.05 of that is the bar (written before the first run).
-_TPIPE_STAGES, _TPIPE_MICRO, _TPIPE_LAYERS = 4, 4, 4
+# the pipeline's cell is cut to 4 of the 16 layers (full width), one a
+# stage (2 a stage in the 2 x 2 run), for the script's time limit: the
+# stage actors' start, the grads' fetch and the all-reduce scale with it.
+# Per stage and batch: each layer's B1, B2, B3 once a microbatch (no remat
+# in a stage); 4 stages x 1 layer x 4 microbatches, or 2 x 2 x 2
+_TPIPE_STAGES, _TPIPE_MICRO, _TPIPE_DEPTH = 4, 4, 4
+_TPIPE_LAYERS = _TPIPE_DEPTH // _TPIPE_STAGES
 _TPIPE_REL_TOL = 1e-6
-_TPIPE_LAUNCHES = {"flash_fwd": 16, "flash_bwd_dq": 16, "flash_bwd_dkv": 16}
+_TPIPE_LAUNCHES = {k: _TPIPE_LAYERS * _TPIPE_MICRO
+                   for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 _TPIPE_DP_BOUND = 1.05 * 5 * 2.0 ** -8
 _TPIPE_HEAD_STORE = 8 << 30
 _TPIPE_NODE_STORE = 8 << 30
@@ -1412,12 +1463,12 @@ def runtime_receive(refs):
             "row_sums": _row_sums(t), "get_s": get_s}
 
 
-def _llama_bf16():
+def _llama_bf16(**kw):
     import torch
 
     from ray_tpu_torch.models import config as C
 
-    return C.get_config("llama3-1b", param_dtype=torch.bfloat16)
+    return C.get_config("llama3-1b", param_dtype=torch.bfloat16, **kw)
 
 
 def counted_forward(params, cfg, seed: int) -> dict:
@@ -1980,13 +2031,14 @@ def _leaf_names(tree, prefix=""):
     return [prefix[:-1]]
 
 
-def train_config(C):
+def train_config(C, **kw):
     """bench.py's llama3-1b training cell: bf16 params, T = 2048, remat
-    with policy "nothing"."""
+    with policy "nothing" (``n_layers=`` cuts its depth)."""
     import torch
 
     return C.get_config("llama3-1b", param_dtype=torch.bfloat16,
-                        max_seq_len=2048, remat=True, remat_policy="nothing")
+                        max_seq_len=2048, remat=True, remat_policy="nothing",
+                        **kw)
 
 
 def train_batch(cfg, seed: int):
@@ -2254,13 +2306,13 @@ def trainer_loop(config):
              "current_device": torch.cuda.current_device(),
              "pid": os.getpid()}
     seed = config["seed"]
-    cfg = train_config(C)
+    cfg = train_config(C, n_layers=_TRAINER_LAYERS)
     tx = TR.make_optimizer(3e-4, mu_dtype=torch.bfloat16)
     batch = train_batch(cfg, seed + 3)
     restored = train.get_checkpoint()
     if restored is None:
         params = T.init_params(torch.Generator(device="cuda").manual_seed(
-            seed), _llama_bf16(), device="cuda")
+            seed), _llama_bf16(n_layers=_TRAINER_LAYERS), device="cuda")
         state = {"step": torch.zeros((), dtype=torch.int32, device="cuda"),
                  "params": params, "opt_state": tx.init(params)}
         del params
@@ -2317,28 +2369,28 @@ def _mem_available() -> int:
     return kib << 10
 
 
-def phase_trainer(fa, T, TR, C, seed: int, train_row):
-    """Phase train's cell through the port's Train library: a TorchTrainer
-    with one num_gpus=1 worker (the module's docstring, trainer). Returns
-    the worker's launches in its first step."""
+def phase_trainer(fa, T, TR, C, seed: int):
+    """Phase train's cell at _TRAINER_LAYERS layers through the port's
+    Train library: a TorchTrainer with one num_gpus=1 worker (the module's
+    docstring, trainer). Returns the worker's launches in its first step
+    and its ms per step."""
     import torch
 
     import chip_smoke as CS  # by reference, not as __main__
     import ray_tpu_torch as rt
     from ray_tpu_torch import train
 
-    if train_row is None:
-        # phase train did not finish: its five steps here, from the seed
-        cfg = train_config(C)
-        params = T.init_params(torch.Generator(device="cuda").manual_seed(
-            seed), _llama_bf16(), device="cuda")
-        ref = _train_steps(fa, TR, cfg, params, train_batch(cfg, seed + 3),
-                           _TRAIN_STEPS, False)
-        walls = ref["walls_ms"][1:-1]  # steps 2-4, as phase train's
-        train_row = {"losses": ref["losses"],
-                     "ms_per_step": sum(walls) / len(walls)}
-        del params, ref
-        torch.cuda.empty_cache()
+    # the same five steps in the driver first, from the seed
+    cfg = train_config(C, n_layers=_TRAINER_LAYERS)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(
+        seed), _llama_bf16(n_layers=_TRAINER_LAYERS), device="cuda")
+    ref = _train_steps(fa, TR, cfg, params, train_batch(cfg, seed + 3),
+                       _TRAIN_STEPS, False)
+    walls = ref["walls_ms"][1:-1]  # steps 2-4, as phase train's
+    driver = {"losses": ref["losses"],
+              "ms_per_step": sum(walls) / len(walls)}
+    del params, ref
+    torch.cuda.empty_cache()
     avail = _mem_available()
     if avail < _TRAINER_HOST_BYTES:
         raise AssertionError(f"trainer phase: {avail / 2**30:.1f} GiB of "
@@ -2402,7 +2454,7 @@ def phase_trainer(fa, T, TR, C, seed: int, train_row):
     first = [m for m in hist if not m["restart"]]
     again = [m for m in hist if m["restart"]]
     losses = [m["loss"] for m in first] + [m["loss"] for m in again[1:]]
-    ref = train_row["losses"]
+    ref = driver["losses"]
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
     restart_rel = (abs(again[0]["loss"] - first[-1]["loss"])
                    / abs(first[-1]["loss"]) if again and first
@@ -2410,12 +2462,12 @@ def phase_trainer(fa, T, TR, C, seed: int, train_row):
     starts = [m["start"] for m in hist if "start" in m]
     ck = next((m for m in hist if "checksums" in m), None)
     row.update({
-        "steps": steps, "losses": losses, "phase_train_losses": ref,
-        "rel_to_phase_train": rel,
-        "max_rel_to_phase_train": max(rel, default=float("inf")),
+        "n_layers": _TRAINER_LAYERS, "steps": steps, "losses": losses,
+        "driver_losses": ref, "rel_to_driver": rel,
+        "max_rel_to_driver": max(rel, default=float("inf")),
         "restart_step_rel": restart_rel, "tol": _TRAINER_REL_TOL,
         "launches_per_step": [m["launches"] for m in hist],
-        "launches_want": _TRAIN_LAUNCHES,
+        "launches_want": _TRAINER_LAUNCHES,
         "leases": [{k: s[k] for k in ("gpu_ids", "cuda_visible_devices",
                                       "device_count", "current_device",
                                       "pid", "card_free_gib")}
@@ -2442,7 +2494,7 @@ def phase_trainer(fa, T, TR, C, seed: int, train_row):
                 "kernel_libraries": s0["kernel_libraries_s"]},
             "ms_per_step_steps_2_3": (walls[2] + walls[3]) / 2,
             "first_step_ms": walls[1],
-            "phase_train_ms_per_step": train_row["ms_per_step"],
+            "driver_ms_per_step": driver["ms_per_step"],
             "peak_mem_gib": ck["peak_mem_gib"],
             "checkpoint": {
                 "bytes": ck["ckpt_bytes"], "d2h_s": ck["d2h_s"],
@@ -2476,11 +2528,11 @@ def phase_trainer(fa, T, TR, C, seed: int, train_row):
             and s["current_device"] == 0
             and len((s["cuda_visible_devices"] or "").split(",")) == 1
             and s["cuda_visible_devices"] != "" for s in starts),
-        "launches": bool(hist) and all(m["launches"] == _TRAIN_LAUNCHES
+        "launches": bool(hist) and all(m["launches"] == _TRAINER_LAUNCHES
                                        for m in hist),
         "six_reports": steps == [1, 2, 3, _TRAINER_FAIL_STEP,
                                  _TRAINER_FAIL_STEP, 5],
-        "losses_equal_phase_train": (len(losses) == len(ref) == _TRAIN_STEPS
+        "losses_equal_driver": (len(losses) == len(ref) == _TRAIN_STEPS
                                      and max(rel) <= _TRAINER_REL_TOL),
         "restart_step_equal": restart_rel <= _TRAINER_REL_TOL,
         "checkpoint_checksums": row["checksums_equal"],
@@ -2491,7 +2543,248 @@ def phase_trainer(fa, T, TR, C, seed: int, train_row):
     if not row["ok"]:
         raise AssertionError(f"trainer phase failed: "
                              f"{[k for k, v in checks.items() if not v]}")
-    return hist[0]["launches"]
+    return {"launches": hist[0]["launches"],
+            "ms_per_step": row.get("numbers", {}).get(
+                "ms_per_step_steps_2_3")}
+
+
+def data_rows(vocab_size: int, seed: int):
+    """Phase data's shard, made with numpy from ``seed``: ids and tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, vocab_size, (_DATA_ROWS, _DATA_SEQ),
+                          dtype=np.int32)
+    return np.arange(_DATA_ROWS, dtype=np.int64), tokens
+
+
+def data_row_sums(tokens):
+    """Each row's checksum: sum_j (j + 1) * tokens[j] in int64, exact (the
+    largest is below 2^39), from a numpy array or a CUDA tensor: a changed
+    or moved token changes it."""
+    import numpy as np
+
+    if isinstance(tokens, np.ndarray):
+        w = np.arange(1, tokens.shape[-1] + 1, dtype=np.int64)
+        return (tokens.astype(np.int64) * w).sum(-1)
+    import torch
+
+    w = torch.arange(1, tokens.shape[-1] + 1, dtype=torch.int64,
+                     device=tokens.device)
+    return (tokens.to(torch.int64) * w).sum(-1)
+
+
+def data_trainer_loop(config):
+    """Phase data's loop in the TorchTrainer's num_gpus=1 worker (by
+    reference as ``chip_smoke.data_trainer_loop``): phase train's cell from
+    the seed, fed by the dataset shard's ``iter_torch_batches`` with no
+    device; _DATA_STEPS steps on the first batches (launches, the wait for
+    each batch and each step's wall), then the rest of the epoch drained.
+    Reports every batch's devices, ids and row checksums."""
+    entered = time.time()
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import config as C
+    from ray_tpu_torch.models import training as TR
+    from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.ops import _build
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    for name in _build.sources():
+        _build.load(name)
+    start = {"loop_entry_t": entered, "ready_t": time.time(),
+             "gpu_ids": ray_tpu_torch.get_gpu_ids(),
+             "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+             "device_count": torch.cuda.device_count(),
+             "current_device": torch.cuda.current_device()}
+    cfg = train_config(C)
+    tx = TR.make_optimizer(3e-4, mu_dtype=torch.bfloat16)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(
+        config["seed"]), _llama_bf16(), device="cuda")
+    state = {"step": torch.zeros((), dtype=torch.int32, device="cuda"),
+             "params": params, "opt_state": tx.init(params)}
+    del params
+    step_fn = TR.make_train_step(cfg, tx)
+    torch.cuda.synchronize()
+    start["state_ready_t"] = time.time()
+
+    devices, ids, sums = set(), [], []
+
+    def take(batch):
+        devices.update(str(t.device) for t in batch.values())
+        ids.append(batch["id"])
+        sums.append(data_row_sums(batch["tokens"]))
+
+    batches = iter(train.get_dataset_shard("train").iter_torch_batches(
+        batch_size=_DATA_BATCH))
+    steps = []
+    for i in range(_DATA_STEPS):
+        t0 = time.perf_counter()
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        take(batch)
+        toks = batch["tokens"]
+        _zero_counts(fa)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        _, m = step_fn(state, {"inputs": toks[:, :-1],
+                               "targets": toks[:, 1:]})
+        loss = m["loss"].item()
+        torch.cuda.synchronize()
+        steps.append({"step": i + 1, "loss": loss,
+                      "batch_wait_ms": (t1 - t0) * 1e3,
+                      "ms": (time.perf_counter() - t2) * 1e3,
+                      "launches": _counts(fa)})
+    del state
+    t0 = time.perf_counter()
+    drained = nbytes = 0
+    for batch in batches:
+        take(batch)
+        drained += 1
+        nbytes += sum(t.numel() * t.element_size() for t in batch.values())
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    train.report({"start": start, "steps": steps, "devices": sorted(devices),
+                  "ids": torch.cat(ids).tolist(),
+                  "row_sums": torch.cat(sums).tolist(),
+                  "drain": {"batches": drained, "bytes": nbytes,
+                            "s": drain_s}})
+
+
+def phase_data(seed: int, trainer_row, train_row):
+    """A shuffled Dataset feeding the train step in a TorchTrainer worker
+    (the module's docstring, data). Returns the worker's launches in its
+    first step."""
+    import chip_smoke as CS  # by reference, not as __main__
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data, state, train
+    from ray_tpu_torch.data.executor import SHUFFLE_STATS
+    from ray_tpu_torch.models import config as C
+
+    t_phase = time.perf_counter()
+    vocab = C.get_config("llama3-1b").vocab_size
+    ids, tokens = data_rows(vocab, seed)
+    want_sums = data_row_sums(tokens)
+    per = _DATA_ROWS // _DATA_BLOCKS
+    blocks = [{"id": ids[i:i + per], "tokens": tokens[i:i + per]}
+              for i in range(0, _DATA_ROWS, per)]
+    row = {"phase": "data", "card": _nvidia_smi(), "rows": _DATA_ROWS,
+           "blocks": _DATA_BLOCKS, "bytes": int(ids.nbytes + tokens.nbytes),
+           "batch_size": _DATA_BATCH}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        rt.init(num_cpus=8, object_store_memory=_DATA_STORE_BYTES,
+                log_to_driver=False)
+        try:
+            before = dict(SHUFFLE_STATS)
+            # the driver's order: the same plan, run here
+            t0 = time.perf_counter()
+            ref = data.from_numpy(blocks).random_shuffle(seed=seed) \
+                .materialize()
+            shuffle_s = time.perf_counter() - t0
+            order = [int(x) for b in ref.iter_batches(batch_size=_DATA_ROWS)
+                     for x in b["id"]]
+            del ref
+            shuffled = data.from_numpy(blocks).random_shuffle(seed=seed)
+            t0 = time.time()
+            result = train.TorchTrainer(
+                CS.data_trainer_loop, train_loop_config={"seed": seed},
+                scaling_config=train.ScalingConfig(num_workers=1,
+                                                   use_gpu=True),
+                run_config=train.RunConfig(name="data", storage_path=tmp),
+                datasets={"train": shuffled}).fit()
+            fit_s = time.time() - t0
+            summary = state.data_shuffle_summary()
+            spans = sorted((e["ts"] / 1e6 for e in rt.tracing.timeline()
+                            if e["cat"] == "span"
+                            and e["name"] == "train.executor_start"))
+        finally:
+            rt.shutdown()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for _ in range(100):
+        left = _workers_left()
+        if not left:
+            break
+        time.sleep(0.1)
+    wall_s = time.perf_counter() - t_phase
+    got = (result.metrics_history or [{}])[-1]
+    steps = got.get("steps", [])
+    got_ids = got.get("ids", [])
+    start = got.get("start", {})
+    drain = got.get("drain", {})
+    delta = {k: summary["driver"][k] - before.get(k, 0)
+             for k in ("exchanges", "splits", "merges",
+                       "parts_freed_eagerly")}
+    row.update({
+        "error": None if result.error is None else repr(result.error),
+        "losses": [s["loss"] for s in steps],
+        "launches_per_step": [s["launches"] for s in steps],
+        "launches_want": _TRAIN_LAUNCHES, "devices": got.get("devices"),
+        "lease": {k: start.get(k) for k in (
+            "gpu_ids", "cuda_visible_devices", "device_count",
+            "current_device")},
+        "shuffle_summary": summary, "shuffle_delta": delta,
+        "workers_left": left})
+    ms = [s["ms"] for s in steps]
+    row["numbers"] = {
+        "shuffle_s": shuffle_s, "shuffle_rows_per_s": _DATA_ROWS / shuffle_s,
+        "fit_s": fit_s,
+        "worker_start_s": (start["ready_t"] - spans[0]
+                           if spans and start else None),
+        "state_init_s": (start["state_ready_t"] - start["ready_t"]
+                         if start else None),
+        "batch_wait_ms": [s["batch_wait_ms"] for s in steps],
+        "step_ms": ms,
+        "ms_per_step_steps_2_5": (sum(ms[1:]) / len(ms[1:])
+                                  if len(ms) > 1 else None),
+        "phase_trainer_ms_per_step": (trainer_row or {}).get("ms_per_step"),
+        "phase_trainer_layers": _TRAINER_LAYERS,
+        "phase_train_ms_per_step": (train_row or {}).get("ms_per_step"),
+        "drain_batches": drain.get("batches"),
+        "drain_s": drain.get("s"),
+        "drain_batches_per_s": (drain["batches"] / drain["s"]
+                                if drain.get("s") else None),
+        "drain_h2d_GB_per_s": (drain["bytes"] / drain["s"] / 1e9
+                               if drain.get("s") else None),
+        "wall_s": wall_s}
+    checks = {
+        "no_error": result.error is None,
+        "lease": (start.get("gpu_ids") == [0]
+                  and start.get("device_count") == 1
+                  and start.get("current_device") == 0
+                  and len((start.get("cuda_visible_devices") or ""
+                           ).split(",")) == 1
+                  and start.get("cuda_visible_devices") != ""),
+        "batches_on_cuda0": got.get("devices") == ["cuda:0"],
+        "launches": (len(steps) == _DATA_STEPS
+                     and all(s["launches"] == _TRAIN_LAUNCHES
+                             for s in steps)),
+        "losses_finite": (len(steps) == _DATA_STEPS
+                          and all(math.isfinite(s["loss"]) for s in steps)),
+        "ids_once_in_driver_order": (got_ids == order
+                                     and sorted(got_ids) == ids.tolist()),
+        "tokens_bitwise": (sorted(got_ids) == ids.tolist()
+                           and got.get("row_sums") ==
+                           want_sums[got_ids].tolist()),
+        "shuffle_summary": (delta["exchanges"] >= 2
+                            and delta["splits"] >= 2 * _DATA_BLOCKS
+                            and summary["driver"]["exchanges"] >= 2),
+        "no_worker_left": not left}
+    row["checks"] = checks
+    row["ok"] = all(checks.values())
+    _emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"data phase failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return steps[0]["launches"]
 
 
 class LlamaStage:
@@ -2643,11 +2936,11 @@ def _bitwise_tree(xs, refs) -> bool:
 
 
 def _tpipe_dp_run(PL, params, cfg, mbs, tgts, checks: dict) -> dict:
-    """Phase train_pipeline's 2 stages x 2 replicas (8 layers a stage,
-    1F1B, each replica two of the four microbatches) on the cluster's four
-    logical nodes: the replicas' bf16 CUDA grads sum through
-    ray_tpu_torch.collective (the chunked ring on the object plane). Adds
-    its checks to ``checks``; returns its row."""
+    """Phase train_pipeline's 2 stages x 2 replicas (half the cell's
+    layers a stage, 1F1B, each replica two of the four microbatches) on
+    the cluster's four logical nodes: the replicas' bf16 CUDA grads sum
+    through ray_tpu_torch.collective (the chunked ring on the object
+    plane). Adds its checks to ``checks``; returns its row."""
     import torch
 
     import chip_smoke as CS  # by reference, not as __main__
@@ -2741,21 +3034,22 @@ def phase_train_pipeline(fa, T, TR, C, seed: int):
     from ray_tpu_torch.core.context import get_context
     from ray_tpu_torch.train import pipeline as PL
 
-    cfg = train_config(C)
+    cfg = train_config(C, n_layers=_TPIPE_DEPTH)
     params = T.init_params(torch.Generator(device="cuda").manual_seed(seed),
-                           _llama_bf16(), device="cuda")
+                           _llama_bf16(n_layers=_TPIPE_DEPTH), device="cuda")
     batch = train_batch(cfg, seed + 3)
     M = _TPIPE_MICRO
     mbs = [batch["inputs"][i:i + 1] for i in range(M)]
     tgts = [batch["targets"][i:i + 1] for i in range(M)]
     row = {"phase": "train_pipeline", "card": _nvidia_smi(),
-           "config": "llama3-1b", "stages": _TPIPE_STAGES,
+           "config": "llama3-1b", "n_layers": _TPIPE_DEPTH,
+           "stages": _TPIPE_STAGES,
            "layers_per_stage": _TPIPE_LAYERS, "microbatches": M,
            "microbatch": [1, 2048], "dtype": "bfloat16",
            "remat_in_stage": False, "rel_tol": _TPIPE_REL_TOL,
            "elastic_checkpoints": False}
 
-    # phase train's tied gradient: the whole batch through loss_fn (remat)
+    # the cell's tied gradient: the whole batch through loss_fn (remat)
     names = _leaf_names(params)
     loss_whole, grads = _grads(T, TR, params, batch, cfg)
     tied = grads[names.index("embed")].float().cpu()  # off the card
@@ -2843,7 +3137,7 @@ def phase_train_pipeline(fa, T, TR, C, seed: int):
                                        [oracle[0]["embed"]]),
                     "head": _tree_rel([grads[-1]["head"]],
                                       [oracle[-1]["head"]])},
-                "embed_sum_rel_to_phase_train": _tree_rel(
+                "embed_sum_rel_to_whole_batch": _tree_rel(
                     [embed], [tied.to(embed.device)]),
                 "launches": launches,
                 "inline_promoted": promoted,
@@ -4629,9 +4923,6 @@ def run(seed: int) -> int:
         torch.cuda.empty_cache()
         moe_launches = attempt("moe_forward", phase_moe_forward, fa, T, M,
                                moe, moe_params, seed)
-        torch.cuda.empty_cache()
-        attempt("moe_serving", phase_serving, E, moe, moe_params, seed,
-                "moe_serving")
     del moe_params
     torch.cuda.empty_cache()
     moe4 = moe_train_config(C)
@@ -4640,6 +4931,11 @@ def run(seed: int) -> int:
     if moe_params is not None:
         attempt("moe_engine", phase_moe_engine, E, G, moe4, moe_params,
                 seed)
+        torch.cuda.empty_cache()
+        # serving at the 4-layer MoE model's depth (the 16-layer model's
+        # 32 requests took 38-64 s, which the script's limit cannot spare)
+        attempt("moe_serving", phase_serving, E, moe4, moe_params, seed,
+                "moe_serving")
         torch.cuda.empty_cache()
         moe_train_launches = attempt("moe_train", phase_moe_train, fa, T,
                                      TR, moe4, moe_params, seed)
@@ -4663,8 +4959,10 @@ def run(seed: int) -> int:
     del params
     torch.cuda.empty_cache()
     _emit({"driver_reserved_bytes": torch.cuda.memory_reserved()})
-    trainer_launches = attempt("trainer", phase_trainer, fa, T, TR, C, seed,
-                               train_row)
+    trainer_row = attempt("trainer", phase_trainer, fa, T, TR, C, seed)
+    torch.cuda.empty_cache()
+    data_launches = attempt("data", phase_data, seed, trainer_row,
+                            train_row)
     torch.cuda.empty_cache()
     tpipe_launches = attempt("train_pipeline", phase_train_pipeline, fa, T,
                              TR, C, seed)
@@ -4699,7 +4997,8 @@ def run(seed: int) -> int:
             "train_dots_step": dots_launches["flash_fwd"],
             "ring_forward": ring_launches["ring_forward"],
             "train_mesh_step": mesh_launches["flash_fwd"],
-            "trainer_step": trainer_launches["flash_fwd"],
+            "trainer_step": trainer_row["launches"]["flash_fwd"],
+            "data_trainer_step": data_launches["flash_fwd"],
             "train_pipeline": tpipe_launches["flash_fwd"],
             **_axis_launches(tensor_row, pipeline_row, "flash_fwd")}}]
     for name, line_no, source, err in (
@@ -4727,7 +5026,8 @@ def run(seed: int) -> int:
                     "ring_backward" if name == "flash_bwd_dq"
                     else "ring_backward_dkv"],
                 "train_mesh_step": mesh_launches[name],
-                "trainer_step": trainer_launches[name],
+                "trainer_step": trainer_row["launches"][name],
+                "data_trainer_step": data_launches[name],
                 "train_pipeline": tpipe_launches[name],
                 **_axis_launches(tensor_row, pipeline_row, name)}})
     _emit({"kernels": line})

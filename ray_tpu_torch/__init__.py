@@ -17,7 +17,11 @@ state, gang restart, the MPMD pipeline of stage actors) and Tune
 (``tune``), with ``collective`` (host-plane collectives between actors)
 and ``cluster_utils`` (logical multi-node clusters), and RLlib
 (``rllib``: CPU rollout workers, learners on the card, PPO, IMPALA, APPO,
-A2C and DQN). Entry points of the model stack and RLlib's learners run on
+A2C, DQN and the rest of the reference's algorithms), Data (``data``:
+datasets of numpy-column blocks, the shuffle exchange, ``streaming_split``
+and ``iter_torch_batches`` onto the card) with ``utils`` (its ``Queue``).
+Entry points of the model stack, RLlib's learners and
+``iter_torch_batches`` run on
 CUDA unless the caller passes ``device="cpu"``.
 
 Public core API mirrors the reference's (``ray.*``):
@@ -34,8 +38,8 @@ import importlib
 from ray_tpu_torch._version import __version__
 
 _SUBMODULES = ("models", "ops", "parallel", "entry", "interop", "core",
-               "serve", "train", "tune", "rllib", "collective",
-               "cluster_utils", "tracing", "metrics", "profiling",
+               "serve", "train", "tune", "rllib", "collective", "data",
+               "utils", "cluster_utils", "tracing", "metrics", "profiling",
                "runtime_env", "state", "trace_analysis", "usage_stats")
 
 _API = ("ActorClass", "ActorHandle", "NodeAffinitySchedulingStrategy",

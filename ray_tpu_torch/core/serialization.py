@@ -183,8 +183,11 @@ def _device_reduce(obj):
     if not get_config().serialization_device_zero_copy:
         return None
     torch_mod = sys.modules.get("torch")
-    if torch_mod is not None and type(obj) in (
-            torch_mod.Tensor, torch_mod.nn.Parameter):
+    # only an object of a torch type can be a tensor: while another thread
+    # imports torch, its module is in sys.modules without its attributes
+    if torch_mod is not None and \
+            type(obj).__module__.partition(".")[0] == "torch" and type(
+                obj) in (torch_mod.Tensor, torch_mod.nn.Parameter):
         try:
             return _tensor_reduce(torch_mod, obj)
         except (TypeError, RuntimeError, KeyError):

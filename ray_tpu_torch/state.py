@@ -284,6 +284,26 @@ def pipeline_stage_summary(prefix: Optional[str] = None
     return stages
 
 
+def data_shuffle_summary() -> Dict[str, Any]:
+    """Pipelined-exchange counters: the cluster-merged ``data.shuffle_*``
+    metric rows (splits / fold+merge tasks / eagerly-freed part handles /
+    arena-backpressure pauses, summed over every driver that ran an
+    exchange) plus THIS process's live ``SHUFFLE_STATS`` (same counters,
+    driver-local and synchronous — what the footprint tests assert
+    against, since metric pushes ride a periodic channel)."""
+    from ray_tpu_torch import metrics as _metrics
+    from ray_tpu_torch.data.executor import SHUFFLE_STATS
+
+    merged: Dict[str, Any] = {}
+    try:
+        for row in _metrics.metrics_summary():
+            if str(row.get("name", "")).startswith("data.shuffle"):
+                merged[row["name"]] = row.get("value", 0.0)
+    except Exception:  # noqa: BLE001 — no cluster: local view only
+        pass
+    return {"cluster": merged, "driver": dict(SHUFFLE_STATS)}
+
+
 def summarize_actors(limit: int = 10_000) -> Dict[str, Any]:
     rows = list_actors(limit=limit)
     states = Counter(r["state"] for r in rows)

@@ -227,3 +227,87 @@ def test_rllib_exports_every_name_of_the_reference():
     want = {"TorchPolicy" if n == "JaxPolicy" else n for n in ref}
     assert want <= set(rllib.__all__), sorted(want - set(rllib.__all__))
     assert all(hasattr(rllib, n) for n in rllib.__all__)
+
+
+def test_data_and_utils_load_no_torch_arrow_or_pandas():
+    """Data's modules (and utils' Queue) load no torch, no JAX, nothing of
+    ray_tpu, no pyarrow and no pandas at import: map, shuffle and read
+    tasks run in CPU workers that never pay for them. Torch comes with
+    iter_torch_batches, the edge packages with the edges that use them."""
+    mods = [m for m in _port_modules()
+            if m.startswith(("ray_tpu_torch.data", "ray_tpu_torch.utils"))]
+    assert {"ray_tpu_torch.data", "ray_tpu_torch.data.block",
+            "ray_tpu_torch.data.executor", "ray_tpu_torch.data.iterator",
+            "ray_tpu_torch.data.dataset", "ray_tpu_torch.data.read_api",
+            "ray_tpu_torch.utils.queue"} <= set(mods)
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import ray_tpu_torch\n"
+        "ray_tpu_torch.data, ray_tpu_torch.utils, ray_tpu_torch.state\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.partition('.')"
+        "[0] in ('torch', 'jax', 'ray_tpu', 'pyarrow', 'pandas'))))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(_ROOT)})
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_iter_torch_batches_without_device_raises_before_a_batch(no_cuda):
+    """iter_torch_batches() means CUDA: without it, the call raises before
+    it takes a block; device="cpu" is the only way to the CPU."""
+    from ray_tpu_torch.data import DataIterator
+
+    class Untouched:
+        def __iter__(self):
+            raise AssertionError("a block was taken")
+
+    it = DataIterator(Untouched())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        it.iter_torch_batches()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        it.iter_torch_batches(batch_size=4, device="cuda")
+    gen = it.iter_torch_batches(device="cpu")
+    with pytest.raises(AssertionError, match="a block was taken"):
+        next(gen)
+
+
+def _reference_public(path: str, cls=None) -> set:
+    """Public names of a reference module's ``__all__`` or of one of its
+    classes, read from the file's text (the reference imports JAX and
+    pyarrow)."""
+    import ast
+
+    tree = ast.parse((_ROOT / path).read_text())
+    if cls is None:
+        return set(next(ast.literal_eval(node.value) for node in tree.body
+                        if isinstance(node, ast.Assign)
+                        and node.targets[0].id == "__all__"))
+    body = next(n for n in tree.body
+                if isinstance(n, ast.ClassDef) and n.name == cls).body
+    return {n.name for n in body if isinstance(n, ast.FunctionDef)
+            and not n.name.startswith("_")}
+
+
+def test_data_exports_every_name_of_the_reference():
+    """ray_tpu_torch.data.__all__ equals ray_tpu.data's; Dataset and
+    DataIterator have every public method of the reference's but
+    iter_jax_batches, whose counterpart is iter_torch_batches(device=,
+    dtype=, sharding=); state has data_shuffle_summary."""
+    import inspect
+
+    from ray_tpu_torch import data, state
+
+    assert set(data.__all__) == _reference_public("ray_tpu/data/__init__.py")
+    assert all(hasattr(data, n) for n in data.__all__)
+    for cls, path in ((data.Dataset, "ray_tpu/data/dataset.py"),
+                      (data.DataIterator, "ray_tpu/data/iterator.py")):
+        want = _reference_public(path, cls.__name__) - {"iter_jax_batches"}
+        assert want <= set(dir(cls)), sorted(want - set(dir(cls)))
+        assert not hasattr(cls, "iter_jax_batches")
+    params = inspect.signature(
+        data.DataIterator.iter_torch_batches).parameters
+    assert {"batch_size", "device", "dtype", "sharding"} <= set(params)
+    assert callable(state.data_shuffle_summary)

@@ -12,10 +12,16 @@
   ObjectRef's __del__ sending its free on the same connection): that send
   queues its frame, which the drain sends, instead of waiting for the lock
   its own thread holds.
+- While one thread imports torch, ``sys.modules["torch"]`` holds a module
+  without its attributes yet. Another thread that serializes a value then
+  asks for a tensor only of an object whose type comes from torch, instead
+  of reading ``torch.Tensor`` off that module.
 """
 
 import socket
+import sys
 import threading
+import types
 
 import numpy as np
 
@@ -77,3 +83,16 @@ def test_a_send_made_mid_drain_by_the_draining_thread_is_sent():
     finally:
         a.close()
         b.close()
+
+
+def test_serializing_while_another_thread_imports_torch(monkeypatch):
+    """A driver's first iter_torch_batches imports torch while
+    streaming_split's pump thread pickles block refs onto its queues: the
+    pickler must not fail on the half-imported module."""
+    from ray_tpu_torch.core import serialization as S
+
+    monkeypatch.setitem(sys.modules, "torch", types.ModuleType("torch"))
+    value = {"block": {"x": np.arange(10)}, "refs": [[1], [2]]}
+    out = S.deserialize(S.serialize(value).frames)
+    assert out["refs"] == [[1], [2]]
+    assert np.array_equal(out["block"]["x"], np.arange(10))

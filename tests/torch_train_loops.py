@@ -1,5 +1,6 @@
-"""Train loops of tests/test_torch_train_parity.py that run in the port's
-TorchTrainer workers. This module imports no JAX, so the workers, which
+"""Train loops of tests/test_torch_train_parity.py and
+tests/test_torch_data_train_parity.py that run in the port's TorchTrainer
+workers. This module imports no JAX, so the workers, which
 import it to unpickle a loop, load only torch and the port."""
 
 import dataclasses
@@ -110,3 +111,33 @@ def data_loop(config):
                       "grad_norm": m["grad_norm"].item(),
                       "mesh": dict(zip(mesh.mesh_dim_names,
                                        mesh.mesh.shape))})
+
+
+def data_fed_loop(config):
+    """The tiny fp32 train step fed by the worker's dataset shard through
+    ``iter_torch_batches(device="cpu")``: a step on each of the first
+    ``steps`` batches, then the rest of the epoch drained; reports the
+    losses and every id in the order the batches brought them."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.interop import params_from_numpy
+    from ray_tpu_torch.models import config as C
+    from ray_tpu_torch.models import training as TR
+
+    torch.set_num_threads(1)
+    cfg = C.tiny_config(dtype=torch.float32, param_dtype=torch.float32)
+    tx = TR.make_optimizer(1e-3)
+    params = params_from_numpy(config["params"], cfg, "cpu")
+    state = {"step": torch.zeros((), dtype=torch.int32), "params": params,
+             "opt_state": tx.init(params)}
+    step = TR.make_train_step(cfg, tx)
+    losses, ids = [], []
+    shard = train.get_dataset_shard("train")
+    for i, batch in enumerate(shard.iter_torch_batches(
+            batch_size=config["batch_size"], device="cpu")):
+        ids.extend(batch["id"].tolist())
+        if i < config["steps"]:
+            toks = batch["tokens"]
+            _, m = step(state, {"inputs": toks[:, :-1],
+                                "targets": toks[:, 1:]})
+            losses.append(m["loss"].item())
+    train.report({"losses": losses, "ids": ids})
