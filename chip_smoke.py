@@ -144,6 +144,33 @@ phase:
             step's ms and the step's ms beside phase train's (the same
             cell) and phase trainer's (4 layers), the drain's batches/s and
             host-to-device GB/s, the phase's wall
+  dag_workflow  the port's DAG and Workflow on its runtime: a diamond of
+            num_gpus=1 steps (every one leases the whole card, so they run
+            one after another): dag_forward_step builds llama3-1b in bf16
+            at full width and 4 layers (_TRAINER_LAYERS) from --seed and
+            returns counted_forward's dict (the last position's logits, a
+            CUDA tensor [4, 128256] bf16, and B1's launches);
+            dag_reduce_step takes it and returns the argmax and fp32 row
+            sums; dag_join_step takes both. Each step's run is logged to a
+            marker file. (a) dag.execute(seed) through InputNode: the
+            logits bitwise equal to counted_forward in the driver at the
+            same seed and depth, B1 4 launches in the step, the forward
+            step ran once; (b) workflow.run(dag, input=seed) into a fresh
+            storage directory: SUCCESSFUL, the output bitwise equal to
+            (a)'s, the forward step's checkpoint loaded here a tensor on
+            cuda:0 bitwise equal to (a)'s logits; (c) a second workflow
+            whose join raises on its first call: RESUMABLE, then
+            workflow.resume runs the join alone (the forward does not run
+            again, no B1 launch in the resumed run) and ends SUCCESSFUL
+            with the output bitwise equal to (a)'s; no worker left.
+            Numbers: the first step's start after execute() (its worker's
+            start), the forward's seconds, each workflow's wall, the
+            resume's wall
+  microbenchmark  python -m ray_tpu_torch.utils.microbenchmark --quick in
+            a subprocess (120 s timeout): its JSON on a line of its own,
+            every metric name of the reference's main, every rate
+            positive, no worker left. These are the runtime's host rates
+            on the card's machine (no GPU is leased)
   train_pipeline  the train cell at 4 of its 16 layers (full width) as
             the port's MPMD pipeline (ray_tpu_torch.train.Pipeline) on a
             cluster_utils.Cluster whose head has no GPU and whose four
@@ -399,6 +426,25 @@ _DATA_SEQ = 2049
 _DATA_BATCH = 4
 _DATA_STEPS = 5
 _DATA_STORE_BYTES = 2 << 30
+# dag_workflow: a diamond of num_gpus=1 steps over llama3-1b's bf16 forward
+# at full width and _TRAINER_LAYERS layers (B1 once a layer); the phase's
+# budget is 60 s of the script's 1,200
+_DAG_LAUNCHES = {"flash_fwd": _TRAINER_LAYERS, "flash_bwd_dq": 0,
+                 "flash_bwd_dkv": 0}
+_DAG_STORE_BYTES = 1 << 30
+# microbenchmark: `python -m ray_tpu_torch.utils.microbenchmark --quick` in
+# a subprocess; every metric name of the reference's main
+# (ray_tpu/utils/microbenchmark.py; tests/test_torch_ecosystem.py holds
+# this list to it)
+_MICROBENCH_TIMEOUT_S = 120
+_MICROBENCH_METRICS = (
+    "single_client_tasks_sync", "single_client_tasks_async",
+    "single_client_tasks_with_arg_async", "1_1_actor_calls_sync",
+    "1_1_actor_calls_async", "1_1_actor_calls_concurrent",
+    "n_n_actor_calls_async", "single_client_put_calls",
+    "single_client_get_calls", "single_client_get_calls_uncached",
+    "single_client_put_100mb_calls", "single_client_put_gigabytes",
+    "placement_group_create/removal")
 # serve: phase engine's prompt lengths and new tokens (its fp32 check), and
 # the 8 warm-up requests the bf16 replica serves before the timed ones
 # (phase serving warms its engine up in process; a replica cannot be)
@@ -2787,6 +2833,315 @@ def phase_data(seed: int, trainer_row, train_row):
     return steps[0]["launches"]
 
 
+def _dag_log(log: str, step: str, t0: float, b1: int, **kw):
+    """One line per run of a dag_workflow step: the marker file the phase
+    counts each step's runs (and their B1 launches) from."""
+    with open(log, "a") as f:
+        f.write(json.dumps({"step": step, "pid": os.getpid(), "t0": t0,
+                            "t1": time.time(), "b1": b1, **kw}) + "\n")
+
+
+def dag_forward_step(seed: int, log: str) -> dict:
+    """The dag_workflow phase's forward step (a num_gpus=1 task):
+    llama3-1b in bf16 at full width and _TRAINER_LAYERS layers from
+    ``seed``, counted_forward's dict (the last position's logits on the
+    card, B1's launches in this process)."""
+    t0 = time.time()
+    import torch
+
+    from ray_tpu_torch.models import transformer as T
+
+    cfg = _llama_bf16(n_layers=_TRAINER_LAYERS)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(seed),
+                           cfg, device="cuda")
+    out = counted_forward(params, cfg, seed)
+    _dag_log(log, "forward", t0, out["launches"]["flash_fwd"],
+             proc_start=_proc_start_time())
+    return out
+
+
+def dag_reduce_step(fwd: dict, log: str) -> dict:
+    """The second num_gpus=1 step: the forward's logits' argmax and fp32
+    row sums, on the card."""
+    t0 = time.time()
+    import torch
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    b1 = fa.launches
+    x = fwd["logits"]
+    out = {"argmax": x.argmax(dim=-1), "row_sums": x.float().sum(dim=-1)}
+    torch.cuda.synchronize()
+    _dag_log(log, "reduce", t0, fa.launches - b1)
+    return out
+
+
+def dag_join_step(fwd: dict, red: dict, log: str, fail_flag=None) -> dict:
+    """The join of both: the logits, B1's launches and seconds in the
+    forward step, the argmax and the row sums. Raises once, and deletes
+    ``fail_flag``, if that file exists (phase dag_workflow (c))."""
+    t0 = time.time()
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    b1 = fa.launches
+    if fail_flag is not None and os.path.exists(fail_flag):
+        os.unlink(fail_flag)
+        _dag_log(log, "join", t0, 0, failed=True)
+        raise RuntimeError("dag_workflow: the join step's injected failure")
+    out = {"logits": fwd["logits"], "launches": fwd["launches"],
+           "forward_s": fwd["s"], "argmax": red["argmax"],
+           "row_sums": red["row_sums"]}
+    _dag_log(log, "join", t0, fa.launches - b1)
+    return out
+
+
+def dag_graph(log: str, fail_flag=None):
+    """The diamond: forward(seed) feeds reduce, and join takes both. Every
+    step leases the whole card (num_gpus=1), so the dependencies run them
+    one after another."""
+    import chip_smoke as CS  # by reference, not as __main__
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dag import InputNode
+
+    gpu = {"num_gpus": 1, "num_cpus": 0}
+    fwd = rt.remote(**gpu)(CS.dag_forward_step)
+    red = rt.remote(**gpu)(CS.dag_reduce_step)
+    join = rt.remote(max_retries=0, **gpu)(CS.dag_join_step)
+    with InputNode() as seed_in:
+        f = fwd.bind(seed_in, log)
+        return join.bind(f, red.bind(f, log), log, fail_flag)
+
+
+def _dag_runs(log: str) -> list:
+    if not os.path.exists(log):
+        return []
+    with open(log) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _spans(runs: list, t0: float) -> list:
+    """[step, start, end] of each logged step run, seconds after t0."""
+    return [[r["step"], r["t0"] - t0, r["t1"] - t0] for r in runs]
+
+
+def _same_output(out, ref) -> bool:
+    """Every tensor of a join's output bitwise equal to ``ref``'s, on the
+    card, and the same launches."""
+    import torch
+
+    return all(isinstance(out.get(k), torch.Tensor)
+               and out[k].device == torch.device("cuda", 0)
+               and out[k].dtype == ref[k].dtype
+               and torch.equal(out[k], ref[k])
+               for k in ("logits", "argmax", "row_sums")) \
+        and out.get("launches") == ref["launches"]
+
+
+def phase_dag_workflow(seed: int):
+    """.bind() graphs and durable workflows on the card (the module's
+    docstring, dag_workflow). Returns B1's launches in the DAG's and the
+    first workflow's forward step."""
+    import pickle
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    row = {"phase": "dag_workflow", "card": _nvidia_smi(),
+           "config": f"llama3-1b bf16, {_TRAINER_LAYERS} layers",
+           "tokens": [4, 2048]}
+    # the driver's forward at the same seed and depth: what every run of
+    # the graph must give back bit for bit
+    cfg = _llama_bf16(n_layers=_TRAINER_LAYERS)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(seed),
+                           cfg, device="cuda")
+    ref = counted_forward(params, cfg, seed)
+    del params
+    torch.cuda.empty_cache()
+    x = ref["logits"]
+    ref.update(argmax=x.argmax(dim=-1), row_sums=x.float().sum(dim=-1))
+    torch.cuda.synchronize()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dag_")
+    logs = {k: os.path.join(tmp, f"runs_{k}.jsonl") for k in "abc"}
+    flag = os.path.join(tmp, "fail_join_once")
+    got = {}
+    times = {}
+    try:
+        rt.init(num_cpus=4, object_store_memory=_DAG_STORE_BYTES,
+                log_to_driver=False)
+        try:
+            # (a) the graph, executed once from its input
+            t0 = time.time()
+            out_a = rt.get(dag_graph(logs["a"]).execute(seed), timeout=600)
+            times["dag_execute_s"] = time.time() - t0
+            runs_a = _dag_runs(logs["a"])
+            fwd_a = [r for r in runs_a if r["step"] == "forward"]
+            if fwd_a:
+                times["first_step_start_s"] = fwd_a[0]["t0"] - t0
+                times["first_worker_age_at_step_s"] = (
+                    fwd_a[0]["t0"] - fwd_a[0]["proc_start"])
+            times["dag_forward_s"] = out_a["forward_s"]
+            times["dag_steps"] = _spans(runs_a, t0)
+            got["a"] = {
+                "logits_shape": list(out_a["logits"].shape),
+                "logits_dtype": str(out_a["logits"].dtype),
+                "logits_device": str(out_a["logits"].device),
+                "launches": out_a["launches"],
+                "bitwise_to_driver": _same_output(out_a, ref),
+                "forward_runs": len(fwd_a),
+                "steps": [r["step"] for r in runs_a]}
+
+            # (b) the same graph as a durable workflow
+            workflow.init(os.path.join(tmp, "wf"))
+            t0 = time.time()
+            out_b = workflow.run(dag_graph(logs["b"]),
+                                 workflow_id="dag_workflow_b", input=seed)
+            times["workflow_b_s"] = time.time() - t0
+            times["workflow_b_steps"] = _spans(_dag_runs(logs["b"]), t0)
+            wf_b = os.path.join(tmp, "wf", "dag_workflow_b")
+            ckpts = sorted(os.listdir(os.path.join(wf_b, "steps")))
+            fwd_ckpt = [c for c in ckpts
+                        if c.endswith("_dag_forward_step.pkl")]
+            ckpt = None
+            if len(fwd_ckpt) == 1:
+                with open(os.path.join(wf_b, "steps", fwd_ckpt[0]),
+                          "rb") as f:
+                    ckpt = pickle.load(f)
+            logits_b = (ckpt or {}).get("logits")
+            got["b"] = {
+                "status": workflow.get_status("dag_workflow_b"),
+                "launches": out_b["launches"],
+                "bitwise_to_a": _same_output(out_b, out_a),
+                "output_bitwise_to_a": _same_output(
+                    workflow.get_output("dag_workflow_b"), out_a),
+                "checkpoints": ckpts,
+                "forward_checkpoint_device": (
+                    str(logits_b.device) if logits_b is not None else None),
+                "forward_checkpoint_bitwise": bool(
+                    logits_b is not None
+                    and logits_b.device == torch.device("cuda", 0)
+                    and torch.equal(logits_b, out_a["logits"])),
+                "forward_runs": sum(1 for r in _dag_runs(logs["b"])
+                                    if r["step"] == "forward")}
+            del ckpt, logits_b
+
+            # (c) a workflow whose join fails once, then resume
+            open(flag, "w").close()
+            t0 = time.time()
+            err = None
+            try:
+                workflow.run(dag_graph(logs["c"], flag),
+                             workflow_id="dag_workflow_c", input=seed)
+            except Exception as e:  # noqa: BLE001 — the injected failure
+                err = repr(e)[:300]
+            times["workflow_c_failed_run_s"] = time.time() - t0
+            status_failed = workflow.get_status("dag_workflow_c")
+            before = len(_dag_runs(logs["c"]))
+            t0 = time.time()
+            out_c = workflow.resume("dag_workflow_c")
+            times["resume_s"] = time.time() - t0
+            runs_c = _dag_runs(logs["c"])
+            resumed = runs_c[before:]
+            times["resume_steps"] = _spans(resumed, t0)
+            got["c"] = {
+                "error": err, "status_after_failure": status_failed,
+                "status": workflow.get_status("dag_workflow_c"),
+                "bitwise_to_a": _same_output(out_c, out_a),
+                "forward_runs": sum(1 for r in runs_c
+                                    if r["step"] == "forward"),
+                "resumed_steps": [r["step"] for r in resumed],
+                "resumed_b1": sum(r["b1"] for r in resumed)}
+            del out_a, out_b, out_c
+        finally:
+            rt.shutdown()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for _ in range(100):
+        left = _workers_left()
+        if not left:
+            break
+        time.sleep(0.1)
+    times["wall_s"] = time.perf_counter() - t_phase
+    a, b, c = got.get("a", {}), got.get("b", {}), got.get("c", {})
+    row.update(got)
+    row["numbers"] = times
+    row["workers_left"] = left
+    checks = {
+        "driver_launches": ref["launches"] == _DAG_LAUNCHES,
+        "a_logits": (a.get("logits_shape") == [4, cfg.vocab_size]
+                     and a.get("logits_dtype") == "torch.bfloat16"
+                     and a.get("logits_device") == "cuda:0"),
+        "a_bitwise_to_driver": a.get("bitwise_to_driver") is True,
+        "a_launches": a.get("launches") == _DAG_LAUNCHES,
+        "a_forward_ran_once": a.get("forward_runs") == 1,
+        "b_successful": b.get("status") == workflow.WorkflowStatus.SUCCESSFUL,
+        "b_bitwise_to_a": (b.get("bitwise_to_a") is True
+                           and b.get("output_bitwise_to_a") is True),
+        "b_launches": b.get("launches") == _DAG_LAUNCHES,
+        "b_forward_checkpoint_on_card": (
+            b.get("forward_checkpoint_bitwise") is True),
+        "c_resumable": (c.get("error") is not None
+                        and c.get("status_after_failure")
+                        == workflow.WorkflowStatus.RESUMABLE),
+        "c_forward_not_rerun": c.get("forward_runs") == 1,
+        "c_resume_launches_no_b1": (c.get("resumed_steps") == ["join"]
+                                    and c.get("resumed_b1") == 0),
+        "c_successful": (c.get("status")
+                         == workflow.WorkflowStatus.SUCCESSFUL
+                         and c.get("bitwise_to_a") is True),
+        "no_worker_left": not left}
+    row["checks"] = checks
+    row["ok"] = all(checks.values())
+    _emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"dag_workflow phase failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return a["launches"]["flash_fwd"], b["launches"]["flash_fwd"]
+
+
+def phase_microbenchmark():
+    """The port's core microbenchmark as its command (the module's
+    docstring, microbenchmark): its JSON on a line of its own, then the
+    phase's row."""
+    t0 = time.perf_counter()
+    row = {"phase": "microbenchmark", "card": _nvidia_smi(),
+           "command": "python -m ray_tpu_torch.utils.microbenchmark --quick"}
+    env = {**os.environ, "RAY_TPU_USAGE_STATS_ENABLED": "0",
+           "PYTHONPATH": os.pathsep.join(
+               [_ROOT] + [p for p in os.environ.get(
+                   "PYTHONPATH", "").split(os.pathsep) if p])}
+    out = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.utils.microbenchmark",
+         "--quick"], cwd=_ROOT, capture_output=True, text=True, env=env,
+        timeout=_MICROBENCH_TIMEOUT_S)
+    metrics = {}
+    if out.returncode == 0 and out.stdout.strip():
+        metrics = json.loads(out.stdout.strip().splitlines()[-1])
+        _emit(metrics)
+    for _ in range(100):
+        left = _workers_left()
+        if not left:
+            break
+        time.sleep(0.1)
+    row.update({"returncode": out.returncode,
+                "stderr_tail": out.stderr[-2000:] if out.returncode else "",
+                "missing": [m for m in _MICROBENCH_METRICS
+                            if m not in metrics],
+                "wall_s": time.perf_counter() - t0, "workers_left": left})
+    checks = {"exit_0": out.returncode == 0,
+              "every_reference_metric": not row["missing"],
+              "rates_positive": all(metrics.get(m, 0) > 0
+                                    for m in _MICROBENCH_METRICS),
+              "no_worker_left": not left}
+    row["checks"] = checks
+    row["ok"] = all(checks.values())
+    _emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"microbenchmark phase failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+
+
 class LlamaStage:
     """One pipeline stage of the llama3-1b train cell, the ``fn`` of a
     ``PipelineStage``: the embedding (first stage), ``n_layers`` decoder
@@ -4964,6 +5319,9 @@ def run(seed: int) -> int:
     data_launches = attempt("data", phase_data, seed, trainer_row,
                             train_row)
     torch.cuda.empty_cache()
+    dag_launches = attempt("dag_workflow", phase_dag_workflow, seed)
+    torch.cuda.empty_cache()
+    attempt("microbenchmark", phase_microbenchmark)
     tpipe_launches = attempt("train_pipeline", phase_train_pipeline, fa, T,
                              TR, C, seed)
     torch.cuda.empty_cache()
@@ -4999,6 +5357,8 @@ def run(seed: int) -> int:
             "train_mesh_step": mesh_launches["flash_fwd"],
             "trainer_step": trainer_row["launches"]["flash_fwd"],
             "data_trainer_step": data_launches["flash_fwd"],
+            "dag_forward": dag_launches[0],
+            "workflow_forward": dag_launches[1],
             "train_pipeline": tpipe_launches["flash_fwd"],
             **_axis_launches(tensor_row, pipeline_row, "flash_fwd")}}]
     for name, line_no, source, err in (

@@ -19,7 +19,10 @@ and ``cluster_utils`` (logical multi-node clusters), and RLlib
 (``rllib``: CPU rollout workers, learners on the card, PPO, IMPALA, APPO,
 A2C, DQN and the rest of the reference's algorithms), Data (``data``:
 datasets of numpy-column blocks, the shuffle exchange, ``streaming_split``
-and ``iter_torch_batches`` onto the card) with ``utils`` (its ``Queue``).
+and ``iter_torch_batches`` onto the card), ``dag`` (``.bind()`` graphs),
+``workflow`` (durable DAG runs with per-step checkpoints and ``resume``)
+and ``utils`` (``ActorPool``, ``Queue``, the multiprocessing ``Pool``,
+joblib, Dask and the core microbenchmark).
 Entry points of the model stack, RLlib's learners and
 ``iter_torch_batches`` run on
 CUDA unless the caller passes ``device="cpu"``.
@@ -39,8 +42,9 @@ from ray_tpu_torch._version import __version__
 
 _SUBMODULES = ("models", "ops", "parallel", "entry", "interop", "core",
                "serve", "train", "tune", "rllib", "collective", "data",
-               "utils", "cluster_utils", "tracing", "metrics", "profiling",
-               "runtime_env", "state", "trace_analysis", "usage_stats")
+               "dag", "workflow", "utils", "cluster_utils", "tracing",
+               "metrics", "profiling", "runtime_env", "state",
+               "trace_analysis", "usage_stats")
 
 _API = ("ActorClass", "ActorHandle", "NodeAffinitySchedulingStrategy",
         "PlacementGroup", "PlacementGroupSchedulingStrategy",

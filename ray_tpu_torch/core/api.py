@@ -282,7 +282,9 @@ class RemoteFunction:
     def bind(self, *args, **kwargs):
         """Build a lazy DAG node instead of executing (reference:
         ray.dag, dag_node.py:23)."""
-        raise NotImplementedError(_DAG_NOT_PORTED)
+        from ray_tpu_torch.dag import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
     def options(self, **opts) -> "RemoteFunction":
         merged = dict(
@@ -405,7 +407,9 @@ class ActorClass:
 
     def bind(self, *args, **kwargs):
         """Build a lazy actor DAG node (reference: ray.dag class_node.py)."""
-        raise NotImplementedError(_DAG_NOT_PORTED)
+        from ray_tpu_torch.dag import ClassNode
+
+        return ClassNode(self, args, kwargs)
 
     def options(self, **opts) -> "ActorClass":
         base = dict(num_cpus=None, num_gpus=None, resources=None,
@@ -460,10 +464,6 @@ def remote(*args, **kwargs):
     if args:
         raise TypeError("@remote takes keyword arguments only")
     return decorate
-
-
-_DAG_NOT_PORTED = ("bind() builds a ray_tpu_torch.dag node, and dag/ is not "
-                   "ported yet (ROADMAP A2b)")
 
 
 def _resource_dict(num_cpus, num_gpus, resources, default_cpus):

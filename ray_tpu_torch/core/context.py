@@ -1096,7 +1096,15 @@ class CoreContext:
         tiny tasks still pipelines ``max_tasks_in_flight_per_worker`` deep.
         """
         cfg = get_config()
-        cap = cfg.max_tasks_in_flight_per_worker
+        # A class that leases GPUs runs one task per leased worker: each
+        # lease binds its own devices, and queueing a second GPU task
+        # behind the first on one worker serializes work the node had
+        # devices to run at once. The even share below cannot prevent
+        # that: it counts a pending lease for 1 s, and a worker that takes
+        # longer to start (seconds under load) made both tasks of a
+        # two-lease burst queue on the first worker.
+        cap = 1 if dict(cls[1]).get("GPU", 0) > 0 \
+            else cfg.max_tasks_in_flight_per_worker
         to_release: List[_LeasedWorker] = []
         while True:
             with self._sub_lock:

@@ -22,10 +22,17 @@ fails only its remaining range: the tail it never delivered is
 re-requested from a surviving holder instead of failing the pull.
 
 Wire flow (all frames on a direct peer<->peer connection):
-    puller -> server   OBJ_PULL (oid, start, length)         one-way
-    server -> puller   OBJ_PULL_META (oid, size|-1, meta)    create buffer
-    server -> puller   OBJ_PULL_CHUNK hdr + RAW frame  x N   (atomic pair)
-    server -> puller   OBJ_PULL_DONE (oid, start, length)    range complete
+    puller -> server   OBJ_PULL (oid, start, length, wait_s, tag)  one-way
+    server -> puller   OBJ_PULL_META (oid, size|-1, meta, tag)     create buffer
+    server -> puller   OBJ_PULL_CHUNK (oid, off, tag) + RAW  x N   (atomic pair)
+    server -> puller   OBJ_PULL_DONE (oid, start, length, tag)     range complete
+
+``tag`` names the pull attempt (one per leader ``pull()``) and every reply
+echoes it: a serve keeps streaming after its pull was aborted, and on the
+shared connection its late frames would otherwise reach the NEXT pull of
+the same object — a late DONE sealed the new entry before its chunks
+arrived (wrong bytes from the second chunk on). Replies whose tag is not
+the current pull's are dropped.
 
 Every buffer mutation happens on the puller's single IO thread, in stream
 order — META creates the arena buffer before any chunk of that object can
@@ -34,9 +41,10 @@ be dispatched, so there is no allocation/arrival race by construction.
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -111,6 +119,7 @@ class TransferServer:
         # the appear-window and the per-chunk relay budget, and a rogue
         # value must not park serve threads forever
         wait_s = min(float(msg[5]), 120.0) if len(msg) > 5 else 0.0
+        tag = msg[6] if len(msg) > 6 else None
         self.pull_requests += 1  # sole writer: this IO thread
         # Stream on a side thread: a multi-GiB send must not wedge the IO
         # loop that every other connection on this host shares. Concurrent
@@ -118,7 +127,7 @@ class TransferServer:
         # sent atomically (send_with_raw), and the puller writes by the
         # (oid, offset) in each header.
         threading.Thread(target=self._serve_pull,
-                         args=(conn, msg[2], start, length, wait_s),
+                         args=(conn, msg[2], start, length, wait_s, tag),
                          daemon=True).start()
 
     def _pace(self, nbytes: int):
@@ -170,34 +179,36 @@ class TransferServer:
         return None, None
 
     def _serve_pull(self, conn: P.Connection, oid_bin: bytes,
-                    start: int = 0, length: int = -1, wait_s: float = 0.0):
+                    start: int = 0, length: int = -1, wait_s: float = 0.0,
+                    tag=None):
         oid = ObjectID(oid_bin)
         try:
             got, part = self._lookup(oid, wait_s)
             if got is None and part is not None and \
                     part.state != "aborted":
                 self._serve_partial(conn, oid, oid_bin, part, start,
-                                    length, wait_s)
+                                    length, wait_s, tag)
                 return
             if got is None:
                 # absent — or an aborted-pull tombstone: either way the
                 # requester should fail over to another source NOW
-                conn.send(P.OBJ_PULL_META, oid_bin, -1, b"")
+                conn.send(P.OBJ_PULL_META, oid_bin, -1, b"", tag)
                 return
             data, meta, release = got
             try:
                 # META always reports the FULL object size + meta so any
                 # one source's reply lets the puller size the arena buffer
-                conn.send(P.OBJ_PULL_META, oid_bin, len(data), bytes(meta))
+                conn.send(P.OBJ_PULL_META, oid_bin, len(data), bytes(meta),
+                          tag)
                 end = len(data) if length < 0 else min(start + length,
                                                        len(data))
                 with self._stats_lock:
                     self.served_root += 1
                 self._stream_range(conn, oid_bin, data, start, end,
-                                   relay=False)
+                                   relay=False, tag=tag)
                 # echo the REQUESTED range so the puller can match it even
                 # when length was -1 (open-ended)
-                conn.send(P.OBJ_PULL_DONE, oid_bin, start, length)
+                conn.send(P.OBJ_PULL_DONE, oid_bin, start, length, tag)
                 self._count_serve("root", max(end - start, 0))
             finally:
                 release()
@@ -205,7 +216,7 @@ class TransferServer:
             pass
 
     def _stream_range(self, conn: P.Connection, oid_bin: bytes, data,
-                      start: int, end: int, relay: bool):
+                      start: int, end: int, relay: bool, tag=None):
         """Chunk-stream ``data[start:end]`` — ~1 MiB chunks so each
         typically completes within one receiver recv() buffer, hitting
         feed()'s zero-copy fast path (protocol.py). Sealed-view slices
@@ -213,17 +224,17 @@ class TransferServer:
         cs = min(get_config().object_transfer_chunk_bytes, 1 << 20)
         for off in range(start, end, cs):
             self._send_chunk(conn, oid_bin, off, data[off:off + min(
-                cs, end - off)], relay)
+                cs, end - off)], relay, tag)
 
     def _send_chunk(self, conn: P.Connection, oid_bin: bytes, off: int,
-                    chunk, relay: bool):
+                    chunk, relay: bool, tag=None):
         """One chunk's egress: throttle, shared-uplink pacing, the
         atomic header+raw pair, byte accounting — the single sequence
         every serve path (sealed stream AND relay) must share."""
         if self.throttle_s:
             time.sleep(self.throttle_s)
         self._pace(len(chunk))
-        conn.send_with_raw(P.OBJ_PULL_CHUNK, oid_bin, off, raw=chunk)
+        conn.send_with_raw(P.OBJ_PULL_CHUNK, oid_bin, off, tag, raw=chunk)
         self._count_bytes(len(chunk), relay)
 
     def _count_bytes(self, n: int, relay: bool):
@@ -234,7 +245,7 @@ class TransferServer:
 
     def _serve_partial(self, conn: P.Connection, oid: ObjectID,
                        oid_bin: bytes, part, start: int, length: int,
-                       wait_s: float):
+                       wait_s: float, tag=None):
         """Relay an in-progress pull: stream each requested chunk the
         moment the local puller has it. If the local pull seals mid-
         relay, finish from the sealed copy (pinned); if it aborts or
@@ -242,7 +253,7 @@ class TransferServer:
         OBJ_PULL_FAIL so the requester re-pulls it from the root holder
         set (relay-aware failover)."""
         size = part.size
-        conn.send(P.OBJ_PULL_META, oid_bin, size, part.meta)
+        conn.send(P.OBJ_PULL_META, oid_bin, size, part.meta, tag)
         end = size if length < 0 else min(start + length, size)
         with self._stats_lock:
             self.served_relay += 1
@@ -265,10 +276,10 @@ class TransferServer:
                     sealed = True
                     break
                 # aborted or stalled past the wait budget
-                conn.send(P.OBJ_PULL_FAIL, oid_bin, off)
+                conn.send(P.OBJ_PULL_FAIL, oid_bin, off, tag)
                 self._count_serve("relay", max(off - start, 0))
                 return
-            self._send_chunk(conn, oid_bin, off, chunk, relay=True)
+            self._send_chunk(conn, oid_bin, off, chunk, relay=True, tag=tag)
             off += n
         if sealed and off < end:
             # the partial is finished just BEFORE the native seal lands
@@ -281,16 +292,16 @@ class TransferServer:
                 time.sleep(0.002)
                 got = self._read_fn(oid)
             if got is None:  # sealed copy evicted before we switched over
-                conn.send(P.OBJ_PULL_FAIL, oid_bin, off)
+                conn.send(P.OBJ_PULL_FAIL, oid_bin, off, tag)
                 self._count_serve("relay", max(off - start, 0))
                 return
             data, _meta, release = got
             try:
                 self._stream_range(conn, oid_bin, data, off, end,
-                                   relay=True)
+                                   relay=True, tag=tag)
             finally:
                 release()
-        conn.send(P.OBJ_PULL_DONE, oid_bin, start, length)
+        conn.send(P.OBJ_PULL_DONE, oid_bin, start, length, tag)
         self._count_serve("relay", max(end - start, 0))
 
     def _count_serve(self, role: str, nbytes: int):
@@ -351,9 +362,13 @@ class _PullState:
     __slots__ = ("buf", "done", "error", "buf_lock", "size", "ranges",
                  "conns", "addrs", "failed_addrs", "started",
                  "planned_sources", "max_sources", "relay_addrs", "part",
-                 "prefetch", "joined")
+                 "prefetch", "joined", "tag")
 
-    def __init__(self):
+    def __init__(self, tag: int = 0):
+        # this pull attempt's id, sent with each OBJ_PULL and echoed by
+        # every reply: frames of an earlier (aborted) attempt at the same
+        # object are told apart by it and dropped
+        self.tag = tag
         # speculative-prefetch bookkeeping (r13): ``prefetch`` marks a
         # pull the head fired ahead of demand at lease grant/dispatch;
         # ``joined`` flips when a demand get() attaches to it via the
@@ -396,8 +411,9 @@ class ObjectPuller:
         self._pending: Dict[ObjectID, _PullState] = {}
         # per-connection (oid, offset) the next RAW frame belongs to —
         # send_with_raw guarantees the raw frame directly follows its header
-        self._expect: Dict[P.Connection, Tuple[ObjectID, int]] = {}
+        self._expect: Dict[P.Connection, Tuple[ObjectID, int, Any]] = {}
         self._lock = threading.Lock()
+        self._tags = itertools.count(1)
         # cumulative observability counters (all written on the IO thread
         # or under pull()'s completion path; read by tests/metrics)
         self.bytes_by_source: Dict[str, int] = {}
@@ -468,7 +484,7 @@ class ObjectPuller:
                     if st.prefetch:
                         self.prefetch_joins += 1
             else:
-                st = self._pending[oid] = _PullState()
+                st = self._pending[oid] = _PullState(next(self._tags))
                 st.max_sources = max_sources
                 st.relay_addrs = frozenset(relay_addrs)
                 st.prefetch = prefetch
@@ -511,7 +527,7 @@ class ObjectPuller:
         old fail-fast zero for sealed holders."""
         wait_s = get_config().broadcast_serve_wait_s \
             if addr in st.relay_addrs else 0.0
-        conn.send(P.OBJ_PULL, oid.binary(), start, length, wait_s)
+        conn.send(P.OBJ_PULL, oid.binary(), start, length, wait_s, st.tag)
 
     def _start_pull(self, st: _PullState, oid: ObjectID,
                     addrs: List[str], size_hint: int):
@@ -601,12 +617,18 @@ class ObjectPuller:
 
     # ---- everything below runs on the IO thread, in stream order ----
 
+    def _current(self, oid: ObjectID, tag) -> Optional[_PullState]:
+        """The pending pull of ``oid`` if a reply tagged ``tag`` belongs
+        to it; None for a reply to an earlier, finished attempt."""
+        with self._lock:
+            st = self._pending.get(oid)
+        return st if st is not None and st.tag == tag else None
+
     def _on_message(self, conn: P.Connection, msg):
         mt = msg[0]
         if mt == P.OBJ_PULL_META:
             oid, size, meta = ObjectID(msg[2]), msg[3], msg[4]
-            with self._lock:
-                st = self._pending.get(oid)
+            st = self._current(oid, msg[5] if len(msg) > 5 else None)
             if st is None:
                 return
             if size < 0:
@@ -656,15 +678,15 @@ class ObjectPuller:
                 st.part = self._store.begin_partial(oid, st.buf, size,
                                                     bytes(meta))
         elif mt == P.OBJ_PULL_CHUNK:
-            self._expect[conn] = (ObjectID(msg[2]), msg[3])
+            self._expect[conn] = (ObjectID(msg[2]), msg[3],
+                                  msg[4] if len(msg) > 4 else None)
         elif mt == P.RAW_FRAME:
             exp = self._expect.pop(conn, None)
             if exp is None:
                 return
-            oid, off = exp
+            oid, off, tag = exp
             payload = msg[2]
-            with self._lock:
-                st = self._pending.get(oid)
+            st = self._current(oid, tag)
             if st is None:
                 return
             n = len(payload)
@@ -713,13 +735,14 @@ class ObjectPuller:
             # already arrived stays credited; the undelivered tail is
             # re-requested from the remaining candidates (the root set)
             oid = ObjectID(msg[2])
+            if self._current(oid, msg[4] if len(msg) > 4 else None) is None:
+                return
             self._handle_conn_failure(conn, reason="relay source aborted",
                                       only_oid=oid)
         elif mt == P.OBJ_PULL_DONE:
             oid = ObjectID(msg[2])
             start = msg[3] if len(msg) > 3 else 0
-            with self._lock:
-                st = self._pending.get(oid)
+            st = self._current(oid, msg[5] if len(msg) > 5 else None)
             if st is None:
                 return
             with st.buf_lock:

@@ -40,6 +40,11 @@ def test_port_imports_no_jax_and_no_reference_package():
             "ray_tpu_torch.collective.collective",
             "ray_tpu_torch.train.pipeline",
             "ray_tpu_torch.train.pipeline_schedules",
+            "ray_tpu_torch.dag", "ray_tpu_torch.dag.dag_node",
+            "ray_tpu_torch.workflow", "ray_tpu_torch.workflow.execution",
+            *(f"ray_tpu_torch.utils.{m}" for m in (
+                "actor_pool", "multiprocessing", "joblib_backend", "dask",
+                "microbenchmark", "queue")),
             *(f"ray_tpu_torch.rllib.{m}" for m in (
                 "sample_batch", "env", "connectors", "replay_buffers",
                 "models", "catalog", "policy", "learner", "rollout_worker",
@@ -311,3 +316,39 @@ def test_data_exports_every_name_of_the_reference():
         data.DataIterator.iter_torch_batches).parameters
     assert {"batch_size", "device", "dtype", "sharding"} <= set(params)
     assert callable(state.data_shuffle_summary)
+
+
+def test_bind_builds_nodes_and_utils_exports_the_references_names():
+    """``fn.bind()`` and ``Cls.bind()`` build DAG nodes (no runtime
+    needed), ``dag`` and ``workflow`` load as the package's attributes,
+    and ``ray_tpu_torch.utils.__all__`` is ``ray_tpu.utils.__all__``;
+    none of it loads torch or JAX."""
+    code = (
+        "import json, sys\n"
+        "import ray_tpu_torch as rt\n"
+        "from ray_tpu_torch.dag import (ClassMethodNode, ClassNode,\n"
+        "                               FunctionNode, InputNode)\n"
+        "from ray_tpu_torch.utils import ActorPool, register_ray\n"
+        "f = rt.remote(lambda x: x)\n"
+        "class C:\n"
+        "    def m(self, x):\n"
+        "        return x\n"
+        "c = rt.remote(C).bind()\n"
+        "with InputNode() as inp:\n"
+        "    node = f.bind(inp)\n"
+        "ok = [isinstance(node, FunctionNode), isinstance(c, ClassNode),\n"
+        "      isinstance(c.m.bind(node), ClassMethodNode),\n"
+        "      callable(rt.workflow.resume), rt.dag.InputNode is InputNode]\n"
+        "print(json.dumps({'ok': ok, 'all': rt.utils.__all__,\n"
+        "    'mods': sorted(m for m in sys.modules\n"
+        "                   if m.partition('.')[0] in ('torch', 'jax',\n"
+        "                                              'ray_tpu'))}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(_ROOT)})
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["ok"] == [True] * 5
+    assert got["mods"] == []
+    assert len(set(got["all"])) == len(got["all"])
+    assert set(got["all"]) == _reference_public("ray_tpu/utils/__init__.py")

@@ -326,15 +326,23 @@ class TestTaskChaining:
 
 
 def test_bind_names_the_missing_dag_port(rt):
-    with pytest.raises(NotImplementedError, match="ROADMAP A2b"):
-        echo.bind(1)
+    """dag/ is ported: bind() builds the reference's node types, and
+    they execute on the port's runtime."""
+    from ray_tpu_torch.dag import ClassNode, FunctionNode
+
+    node = echo.bind(1)
+    assert isinstance(node, FunctionNode)
+    assert ray_tpu_torch.get(node.execute(), timeout=60) == 1
 
     @ray_tpu_torch.remote
     class Node:
-        pass
+        def get(self, x):
+            return x
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A2b"):
-        Node.bind()
+    cls_node = Node.bind()
+    assert isinstance(cls_node, ClassNode)
+    assert ray_tpu_torch.get(cls_node.get.bind(node).execute(),
+                             timeout=60) == 1
 
 
 def test_session_lives_under_the_temp_directory(rt):

@@ -7,6 +7,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -123,6 +124,42 @@ class TestGpuLeases:
         assert (env_a, env_b, env_c) == ("", "0", "")
         assert len({pid_a, pid_b, pid_c}) == 3
         assert got["waited"] < 60
+
+    def test_gpu_burst_runs_at_once_when_workers_start_slowly(self):
+        """Two num_gpus=2 tasks on a node of 4 GPUs run at once, each on a
+        worker of its own, also when no worker is prestarted and each
+        takes more than a second to start: the first lease's worker must
+        not take the second task into its queue while the second lease
+        waits for its worker."""
+        code = (
+            "import json, os, time\n"
+            "import ray_tpu_torch as rt\n"
+            "rt.init(num_cpus=2, num_gpus=4, log_to_driver=False,\n"
+            "        _system_config={'prestart_workers': False})\n"
+            "d = os.environ['RENDEZVOUS']\n"
+            "@rt.remote(num_gpus=2, num_cpus=0)\n"
+            "def together():\n"
+            "    open(os.path.join(d, str(os.getpid())), 'w').close()\n"
+            "    t = time.monotonic() + 30\n"
+            "    while len(os.listdir(d)) < 2 and time.monotonic() < t:\n"
+            "        time.sleep(0.01)\n"
+            "    return (os.getpid(), len(os.listdir(d)),\n"
+            "            os.environ['CUDA_VISIBLE_DEVICES'])\n"
+            "out = rt.get([together.remote(), together.remote()],\n"
+            "             timeout=120)\n"
+            "rt.shutdown()\n"
+            "print(json.dumps(out))\n")
+        with tempfile.TemporaryDirectory() as d:
+            out = subprocess.run(
+                [sys.executable, "-c", code], cwd=_ROOT,
+                capture_output=True, text=True, timeout=180,
+                env={**os.environ, "PYTHONPATH": str(_ROOT),
+                     "RENDEZVOUS": d, "RAY_TPU_USAGE_STATS_ENABLED": "0"})
+        assert out.returncode == 0, out.stderr
+        (pid_a, seen_a, env_a), (pid_b, seen_b, env_b) = json.loads(
+            out.stdout.strip().splitlines()[-1])
+        assert pid_a != pid_b and seen_a == seen_b == 2
+        assert sorted([env_a, env_b]) == ["0,1", "2,3"]
 
     def test_worker_never_switches_gpus(self, rt):
         """Leases of 1, 2 and 0 GPUs in waves over a pool of reused

@@ -579,11 +579,14 @@ def test_pipeline_2node_smoke():
         want = ("stage0.fwd", "stage1.fwd", "stage0.bwd", "stage1.bwd")
         # stage WORKERS flush their event buffers on their own cadence
         # — poll until every stage's exec histogram landed at the head
+        # with all three microbatches (a histogram can land with the
+        # first two while the third's events wait for the next flush)
         t_end = time.monotonic() + 20
         phases = {}
         while time.monotonic() < t_end:
             phases = state.summarize_tasks()["phases"]
-            if all(f in phases and "exec" in phases[f] for f in want):
+            if all(f in phases and "exec" in phases[f]
+                   and phases[f]["exec"]["count"] >= 3 for f in want):
                 break
             time.sleep(0.25)
         for func in want:
