@@ -171,6 +171,38 @@ phase:
             every metric name of the reference's main, every rate
             positive, no worker left. These are the runtime's host rates
             on the card's machine (no GPU is leased)
+  ops_layer the port's ops layer, each GPU step ops_forward_task: a
+            num_gpus=1 task that builds llama3-1b in bf16 at full width
+            and 4 layers (_TRAINER_LAYERS) from --seed on cuda:0 and runs
+            counted_forward at [4, 2048] (B1 4 launches), returning the
+            logits' SHA-256. (a) python -m ray_tpu_torch start --head
+            --num-cpus 2 with no --num-gpus: `status` prints GPU a / t
+            with t equal to nvidia-smi -L's count, `list nodes` shows it
+            on the head's node; (b) JobSubmissionClient on that head
+            submits an entrypoint (written to a temp dir) that attaches
+            through RAY_TPU_ADDRESS and runs the task: SUCCEEDED, its logs
+            (also through `job logs`) carry a checksum equal to the
+            driver's own forward at the same seed and depth, B1 4; a
+            second job (sleep 600) stopped through `job stop`: STOPPED,
+            no process of its group left; (c) start_dashboard(port=0) in
+            a driver attached to that head: /api/cluster's GPU total the
+            card count and GPU available back at it, /api/jobs both jobs,
+            / the UI with "GPU avail / total", every doctor endpoint 200;
+            `doctor` exits 0; `stop` ends the head; (d) an in-process head
+            without a GPU, an Autoscaler over BatchingNodeProvider(
+            FakeGkeGpuCloud(num_gpus_per_node=1)): the task's lease
+            queues, the pool grows one node (GPU 1, accelerator
+            nvidia-h100-80gb), the task runs there with GPU 0 (bitwise
+            the driver's, B1 4), then the pool shrinks to zero through
+            one request that names the drained node; (e)
+            utils.spark.setup_ray_cluster(num_gpus_per_node=1) through
+            subprocess_launcher: the joined node declares GPU 1, a
+            num_gpus=1 task placed on it sees one device named as
+            nvidia-smi names the card, shutdown_ray_cluster() leaves no
+            agent. After every step no head, agent, worker or job process
+            is left. Numbers: the walls of (a)-(e), each fresh process's
+            start, the job's submit-to-result, the pool's scale-up and
+            scale-down seconds
   train_pipeline  the train cell at 4 of its 16 layers (full width) as
             the port's MPMD pipeline (ray_tpu_torch.train.Pipeline) on a
             cluster_utils.Cluster whose head has no GPU and whose four
@@ -445,6 +477,18 @@ _MICROBENCH_METRICS = (
     "single_client_get_calls", "single_client_get_calls_uncached",
     "single_client_put_100mb_calls", "single_client_put_gigabytes",
     "placement_group_create/removal")
+# ops_layer: the CLI, jobs, the dashboard and doctor, the autoscaler with a
+# fake GKE GPU pool and the Spark shim, each GPU step llama3-1b's bf16
+# forward at full width and _TRAINER_LAYERS layers (B1 once a layer); the
+# phase's budget is 75 s of the script's 1,200
+_OPS_LAUNCHES = _DAG_LAUNCHES
+_OPS_BUDGET_S = 75.0
+_OPS_POOL_ACCELERATOR = "nvidia-h100-80gb"
+_OPS_TIMEOUT_S = 300
+# every process the phase may start: heads and agents (`python -m
+# ray_tpu_torch start`, node agents), workers, the job's entrypoint
+_OPS_PROBES = (_WORKER_PROBE, "ray_tpu_torch[.]core[.]node_agent",
+               "ray_tpu_torch [s]tart", "ops_layer_[j]ob")
 # serve: phase engine's prompt lengths and new tokens (its fp32 check), and
 # the 8 warm-up requests the bf16 replica serves before the timed ones
 # (phase serving warms its engine up in process; a replica cannot be)
@@ -540,6 +584,13 @@ def _nvidia_smi() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def _smi_cards() -> int:
+    """The card count as ``nvidia-smi -L`` lists it."""
+    out = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return sum(1 for line in out.splitlines() if line.startswith("GPU "))
 
 
 def _time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1584,9 +1635,7 @@ def phase_runtime(T, cfg, params, seed: int):
     import ray_tpu_torch as rt
     from ray_tpu_torch.core import serialization
 
-    smi_l = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
-                           text=True, timeout=60, check=True).stdout
-    cards = sum(1 for line in smi_l.splitlines() if line.startswith("GPU "))
+    cards = _smi_cards()
     gb = 1e9
     row = {"phase": "runtime", "card": _nvidia_smi()}
     rt.init(num_cpus=4, object_store_memory=_RUNTIME_STORE_BYTES,
@@ -3140,6 +3189,519 @@ def phase_microbenchmark():
     if not row["ok"]:
         raise AssertionError(f"microbenchmark phase failed: "
                              f"{[k for k, v in checks.items() if not v]}")
+
+
+def _logits_sha256(logits) -> str:
+    """SHA-256 of a bf16 tensor's bytes (copied to the host)."""
+    import hashlib
+
+    import torch
+
+    return hashlib.sha256(logits.contiguous().view(torch.int16).cpu()
+                          .numpy().tobytes()).hexdigest()
+
+
+def ops_forward_task(seed: int) -> dict:
+    """Phase ops_layer's num_gpus=1 task: llama3-1b in bf16 at full width
+    and _TRAINER_LAYERS layers from ``seed`` on cuda:0, counted_forward at
+    [4, 2048]; the logits' SHA-256 and B1's launches in this process, with
+    the lease this worker sees."""
+    t0 = time.time()
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.models import transformer as T
+
+    t_import = time.time()
+    torch.cuda.init()
+    torch.zeros(1, device="cuda")
+    t_ctx = time.time()
+    cfg = _llama_bf16(n_layers=_TRAINER_LAYERS)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(seed),
+                           cfg, device="cuda")
+    torch.cuda.synchronize()
+    t_params = time.time()
+    out = counted_forward(params, cfg, seed)
+    logits = out["logits"]
+    return {"sha256": _logits_sha256(logits), "launches": out["launches"],
+            "device": str(logits.device), "shape": list(logits.shape),
+            "dtype": str(logits.dtype), "forward_s": out["s"],
+            "import_s": t_import - t0, "cuda_context_s": t_ctx - t_import,
+            "params_s": t_params - t_ctx,
+            "gpu_ids": ray_tpu_torch.get_gpu_ids(),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "proc_start": _proc_start_time(), "t0": t0, "t1": time.time()}
+
+
+def ops_device_task() -> dict:
+    """Phase ops_layer (e)'s num_gpus=1 task on the Spark node: what the
+    worker sees of the card."""
+    t0 = time.time()
+    import torch
+
+    import ray_tpu_torch
+
+    return {"device_count": torch.cuda.device_count(),
+            "device_name": torch.cuda.get_device_name(0),
+            "gpu_ids": ray_tpu_torch.get_gpu_ids(),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "proc_start": _proc_start_time(), "t0": t0}
+
+
+_OPS_JOB = """\
+import json, os, sys
+sys.path.insert(0, {root!r})
+import chip_smoke as CS
+import ray_tpu_torch as rt
+rt.init(address=os.environ["RAY_TPU_ADDRESS"], log_to_driver=False)
+task = rt.remote(num_gpus=1, num_cpus=0)(CS.ops_forward_task)
+out = rt.get(task.remote({seed}), timeout={timeout})
+print("OPS_JOB_RESULT " + json.dumps(out), flush=True)
+rt.shutdown()
+"""
+
+
+def _ops_left() -> list:
+    """Processes of the phase still alive (heads, agents, workers, the
+    job's entrypoint), as ``pid cmdline`` lines."""
+    left = []
+    for probe in _OPS_PROBES:
+        out = subprocess.run(["pgrep", "-af", probe], capture_output=True,
+                             text=True)
+        left += [ln for ln in out.stdout.splitlines()
+                 if str(os.getpid()) != ln.split()[0]]
+    return left
+
+
+def _ops_settle(timeout: float = 15.0) -> list:
+    t_end = time.monotonic() + timeout
+    while True:
+        left = _ops_left()
+        if not left or time.monotonic() > t_end:
+            return left
+        time.sleep(0.1)
+
+
+def _cli(env: dict, addr_file: str, *args, timeout: float = 120):
+    """``python -m ray_tpu_torch --address-file <addr_file> *args``:
+    (returncode, stdout, stderr, seconds)."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch", "--address-file",
+         addr_file, *args], cwd=_ROOT, env=env, capture_output=True,
+        text=True, timeout=timeout)
+    return out.returncode, out.stdout, out.stderr, \
+        time.perf_counter() - t0
+
+
+def _http_json(url: str, timeout: float = 30):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, json.loads(r.read())
+
+
+def _ops_task_row(out: dict, sha: str) -> dict:
+    return {"sha256_equal": out["sha256"] == sha,
+            "launches": out["launches"], "device": out["device"],
+            "shape": out["shape"], "dtype": out["dtype"],
+            "gpu_ids": out["gpu_ids"],
+            "cuda_visible_devices": out["cuda_visible_devices"],
+            "import_s": out["import_s"],
+            "cuda_context_s": out["cuda_context_s"],
+            "params_s": out["params_s"], "forward_s": out["forward_s"],
+            "worker_age_at_task_s": out["t0"] - out["proc_start"],
+            "task_s": out["t1"] - out["t0"]}
+
+
+def _ops_cli_and_jobs(seed: int, sha: str, cards: int, env: dict,
+                      tmp: str, times: dict) -> dict:
+    """Phase ops_layer (a)-(c): the CLI head, two jobs, the dashboard,
+    doctor and stop."""
+    import urllib.request
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dashboard import DOCTOR_ENDPOINTS, start_dashboard
+    from ray_tpu_torch.jobs import JobSubmissionClient
+
+    got = {}
+    addr_file = os.path.join(tmp, "address")
+    t_a = time.perf_counter()
+    head_log = open(os.path.join(tmp, "head.log"), "wb")
+    head = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch", "--address-file", addr_file,
+         "start", "--head", "--num-cpus", "2"], cwd=_ROOT, env=env,
+        stdout=head_log, stderr=subprocess.STDOUT, start_new_session=True)
+    try:
+        t_end = time.monotonic() + 120
+        while not os.path.exists(addr_file):
+            if head.poll() is not None or time.monotonic() > t_end:
+                raise RuntimeError("the CLI head did not start: " + open(
+                    os.path.join(tmp, "head.log")).read()[-2000:])
+            time.sleep(0.05)
+        times["cli_head_start_s"] = time.perf_counter() - t_a
+        with open(addr_file) as f:
+            address = json.load(f)["address"]
+        rc, out, err, secs = _cli(env, addr_file, "status")
+        times["cli_status_s"] = secs
+        gpu = [ln.split(":", 1)[1].split("/") for ln in out.splitlines()
+               if ln.strip().startswith("GPU:")]
+        got["a"] = {"status_rc": rc, "status_gpu_line": [
+            float(x) for x in gpu[0]] if gpu else None,
+            "nvidia_smi_cards": cards,
+            "status_tail": out[-600:] if rc == 0 else err[-1200:]}
+        rc, out, err, secs = _cli(env, addr_file, "list", "nodes")
+        times["cli_list_s"] = secs
+        rows = json.loads(out) if rc == 0 else []
+        got["a"]["list_rc"] = rc
+        got["a"]["list_nodes_gpu"] = [
+            (r["node_idx"], r["resources_total"].get("GPU")) for r in rows]
+        times["a_s"] = time.perf_counter() - t_a
+
+        # (b) two jobs through the client in a driver attached to the head
+        t_b = time.perf_counter()
+        script = os.path.join(tmp, "ops_layer_job.py")
+        with open(script, "w") as f:
+            f.write(_OPS_JOB.format(root=_ROOT, seed=seed,
+                                    timeout=_OPS_TIMEOUT_S))
+        rt.init(address=address, log_to_driver=False)
+        try:
+            client = JobSubmissionClient()
+            t0 = time.perf_counter()
+            jid = client.submit_job(
+                entrypoint=f"{sys.executable} {script}",
+                submission_id="ops_layer_forward")
+            t_end = time.monotonic() + _OPS_TIMEOUT_S
+            while client.get_job_status(jid) in ("PENDING", "RUNNING"):
+                if time.monotonic() > t_end:
+                    break
+                time.sleep(0.1)
+            times["job_submit_to_result_s"] = time.perf_counter() - t0
+            status = client.get_job_status(jid)
+            logs = client.get_job_logs(jid)
+            result = [ln for ln in logs.splitlines()
+                      if ln.startswith("OPS_JOB_RESULT ")]
+            job = json.loads(result[-1].split(" ", 1)[1]) if result else {}
+            rc, cli_logs, err, secs = _cli(env, addr_file, "job", "logs",
+                                           jid)
+            times["cli_job_logs_s"] = secs
+            got["b"] = {"status": status,
+                        "logs_tail": logs[-1500:] if not job else "",
+                        "cli_logs_rc": rc,
+                        "cli_logs_same_result": bool(result) and
+                        result[-1] in cli_logs.splitlines()}
+            if job:
+                got["b"].update(_ops_task_row(job, sha))
+                times["job_task_worker_age_s"] = \
+                    got["b"]["worker_age_at_task_s"]
+            # the second job, stopped through the CLI
+            sid = client.submit_job(entrypoint="sleep 600",
+                                    submission_id="ops_layer_sleep")
+            pgid = None
+            t_end = time.monotonic() + 30
+            while pgid is None and time.monotonic() < t_end:
+                ps = subprocess.run(["pgrep", "-x", "sleep"],
+                                    capture_output=True, text=True)
+                for pid in ps.stdout.split():
+                    try:
+                        with open(f"/proc/{pid}/cmdline") as f:
+                            cmd = f.read().split("\0")
+                        if cmd[:2] == ["sleep", "600"]:
+                            pgid = os.getpgid(int(pid))
+                    except (OSError, ProcessLookupError):
+                        pass
+                time.sleep(0.05)
+            def group():
+                """The live processes of the sleep job's group."""
+                if pgid is None:
+                    return []
+                return subprocess.run(["pgrep", "-g", str(pgid)],
+                                      capture_output=True,
+                                      text=True).stdout.split()
+
+            before = group()
+            rc, out, err, secs = _cli(env, addr_file, "job", "stop", sid)
+            times["cli_job_stop_s"] = secs
+            t_end = time.monotonic() + 15
+            while group() and time.monotonic() < t_end:
+                time.sleep(0.05)
+            got["b"]["sleep_job"] = {
+                "stop_rc": rc, "stop_out": out.strip(),
+                "status": client.get_job_status(sid), "pgid": pgid,
+                "group_before": len(before), "group_after": group()}
+            times["b_s"] = time.perf_counter() - t_b
+
+            # (c) the dashboard in this attached driver
+            t_c = time.perf_counter()
+            dash = start_dashboard(port=0)
+            try:
+                t_end = time.monotonic() + 30
+                while True:
+                    _, cl = _http_json(dash.url + "/api/cluster")
+                    total = cl["resources_total"].get("GPU")
+                    avail = cl["resources_available"].get("GPU")
+                    if avail == total or time.monotonic() > t_end:
+                        break
+                    time.sleep(0.2)
+                _, jobs = _http_json(dash.url + "/api/jobs")
+                with urllib.request.urlopen(dash.url + "/",
+                                            timeout=30) as r:
+                    index = r.read().decode()
+                bad = []
+                for ep in DOCTOR_ENDPOINTS:
+                    try:
+                        with urllib.request.urlopen(dash.url + ep,
+                                                    timeout=60) as r:
+                            if r.status != 200 or not r.read():
+                                bad.append((ep, r.status))
+                    except Exception as e:  # noqa: BLE001 — recorded
+                        bad.append((ep, repr(e)[:200]))
+            finally:
+                dash.stop()
+            got["c"] = {
+                "gpu_total": total, "gpu_available": avail,
+                "jobs": sorted((j["job_id"], j["status"]) for j in jobs),
+                "ui_gpu_tile": "GPU avail / total" in index,
+                "endpoints": len(DOCTOR_ENDPOINTS), "bad_endpoints": bad}
+        finally:
+            rt.shutdown()
+        rc, out, err, secs = _cli(env, addr_file, "doctor")
+        times["cli_doctor_s"] = secs
+        got["c"]["doctor_rc"] = rc
+        got["c"]["doctor_summary"] = [ln for ln in out.splitlines()
+                                      if ln.startswith("doctor:")]
+        if rc:
+            got["c"]["doctor_err"] = (out + err)[-1500:]
+        t0 = time.perf_counter()
+        rc, out, err, secs = _cli(env, addr_file, "stop")
+        try:
+            head.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            pass
+        times["cli_stop_s"] = time.perf_counter() - t0
+        got["c"].update(stop_rc=rc, head_exit=head.poll())
+        got["c"]["left"] = _ops_settle()
+        times["c_s"] = time.perf_counter() - t_c
+    finally:
+        if head.poll() is None:
+            os.killpg(head.pid, 9)
+            head.wait(timeout=30)
+        head_log.close()
+    return got
+
+
+def _ops_pool(seed: int, sha: str, times: dict) -> dict:
+    """Phase ops_layer (d): a GPU-less in-process head whose autoscaler
+    grows a fake GKE GPU pool for a num_gpus=1 task and shrinks it back."""
+    import chip_smoke as CS  # by reference, not as __main__
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import (Autoscaler, AutoscalingPolicy,
+                                          BatchingNodeProvider,
+                                          FakeGkeGpuCloud)
+
+    t_d = time.perf_counter()
+    info = rt.init(num_cpus=1, num_gpus=0, log_to_driver=False,
+                   object_store_memory=_DAG_STORE_BYTES,
+                   _system_config={"idle_worker_keep_alive_s": 1.0})
+    cloud = sc = None
+    try:
+        head = info.head
+        addr = head.enable_tcp(host="127.0.0.1", advertise_ip="127.0.0.1")
+        cloud = FakeGkeGpuCloud(addr, num_gpus_per_node=1,
+                                num_cpus_per_node=1,
+                                accelerator=_OPS_POOL_ACCELERATOR)
+        sc = Autoscaler(head, BatchingNodeProvider(cloud), AutoscalingPolicy(
+            max_workers=1, idle_timeout_s=1.5, update_interval_s=0.2))
+        sc.start()
+        t0 = time.perf_counter()
+        ref = rt.remote(num_gpus=1, num_cpus=0)(CS.ops_forward_task).remote(
+            seed)
+        registered = None
+        t_end = time.monotonic() + _OPS_TIMEOUT_S
+        while not rt.wait([ref], timeout=0.05)[0]:
+            if registered is None and any(
+                    n["labels"].get("accelerator") == _OPS_POOL_ACCELERATOR
+                    for n in rt.nodes()):
+                registered = time.perf_counter() - t0
+            if time.monotonic() > t_end:
+                break
+        out = rt.get(ref, timeout=60)
+        t_res = time.perf_counter()
+        times["pool_submit_to_result_s"] = t_res - t0
+        times["pool_scale_up_s"] = registered
+        pool = [n for n in rt.nodes()
+                if n["labels"].get("accelerator") == _OPS_POOL_ACCELERATOR]
+        got = {"pool_nodes": [(n["node_idx"], n["resources_total"].get(
+            "GPU"), n["labels"].get("ray_tpu_autoscaler_id"))
+            for n in pool]}
+        got.update(_ops_task_row(out, sha))
+        times["pool_task_worker_age_s"] = got["worker_age_at_task_s"]
+        t_end = time.monotonic() + 60
+        while cloud.list_nodes() and time.monotonic() < t_end:
+            time.sleep(0.1)
+        times["pool_scale_down_s"] = time.perf_counter() - t_res
+        got["pool_after"] = cloud.list_nodes()
+        got["scale_requests"] = [(r.desired_num_workers,
+                                  list(r.workers_to_delete))
+                                 for r in cloud.scale_requests]
+        got["launches_terminations"] = [sc.num_launches,
+                                        sc.num_terminations]
+    finally:
+        if sc is not None:
+            sc.stop()
+        if cloud is not None:
+            cloud.shutdown()
+        rt.shutdown()
+    got["left"] = _ops_settle()
+    times["d_s"] = time.perf_counter() - t_d
+    return got
+
+
+def _ops_spark(smi_name: str, times: dict) -> dict:
+    """Phase ops_layer (e): a Spark-shim node started through the CLI's
+    ``start --address`` that declares the card."""
+    import chip_smoke as CS  # by reference, not as __main__
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.api import NodeAffinitySchedulingStrategy
+    from ray_tpu_torch.utils import spark
+
+    t_e = time.perf_counter()
+    rt.init(num_cpus=1, num_gpus=0, log_to_driver=False,
+            object_store_memory=_DAG_STORE_BYTES)
+    try:
+        t0 = time.perf_counter()
+        spark.setup_ray_cluster(num_worker_nodes=1, num_cpus_per_node=1,
+                                num_gpus_per_node=1,
+                                launcher=spark.subprocess_launcher,
+                                timeout_s=120)
+        times["spark_setup_s"] = time.perf_counter() - t0
+        try:
+            nodes = [n for n in rt.state.list_nodes() if n["is_remote"]]
+            got = {"nodes": [(n["node_idx"],
+                              n["resources_total"].get("GPU"))
+                             for n in nodes]}
+            task = rt.remote(num_gpus=1, num_cpus=0)(CS.ops_device_task)
+            t0 = time.perf_counter()
+            out = rt.get(task.options(
+                scheduling_strategy=NodeAffinitySchedulingStrategy(
+                    nodes[0]["node_idx"])).remote(), timeout=_OPS_TIMEOUT_S)
+            times["spark_task_s"] = time.perf_counter() - t0
+            times["spark_task_worker_age_s"] = out["t0"] - out["proc_start"]
+            got.update({k: out[k] for k in (
+                "device_count", "device_name", "gpu_ids",
+                "cuda_visible_devices")})
+            got["device_name_equal"] = out["device_name"] == smi_name
+        finally:
+            spark.shutdown_ray_cluster()
+    finally:
+        rt.shutdown()
+    got["left"] = _ops_settle()
+    times["e_s"] = time.perf_counter() - t_e
+    return got
+
+
+def phase_ops_layer(seed: int):
+    """The port's ops layer on the card (the module's docstring,
+    ops_layer). Returns B1's launches in the job's task and in the GPU
+    pool node's task."""
+    import torch
+
+    from ray_tpu_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    smi = _nvidia_smi()
+    row = {"phase": "ops_layer", "card": smi,
+           "config": f"llama3-1b bf16, {_TRAINER_LAYERS} layers",
+           "tokens": [4, 2048], "budget_s": _OPS_BUDGET_S}
+    cards = _smi_cards()
+    # the driver's forward at the same seed and depth: what the job's and
+    # the pool node's forwards must give back bit for bit
+    cfg = _llama_bf16(n_layers=_TRAINER_LAYERS)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(seed),
+                           cfg, device="cuda")
+    ref = counted_forward(params, cfg, seed)
+    del params
+    torch.cuda.empty_cache()
+    sha = _logits_sha256(ref["logits"])
+    row["driver"] = {"launches": ref["launches"],
+                     "device": str(ref["logits"].device)}
+    times = {}
+    env = {**os.environ, "RAY_TPU_USAGE_STATS_ENABLED": "0",
+           "PYTHONPATH": os.pathsep.join(
+               [_ROOT] + [p for p in os.environ.get(
+                   "PYTHONPATH", "").split(os.pathsep) if p])}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ops_")
+    saved = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = env["PYTHONPATH"]  # spark's agents
+    got = {}
+    try:
+        got.update(_ops_cli_and_jobs(seed, sha, cards, env, tmp, times))
+        got["d"] = _ops_pool(seed, sha, times)
+        got["e"] = _ops_spark(smi.split(",")[0].strip(), times)
+    finally:
+        if saved is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    left = _ops_settle()
+    times["wall_s"] = time.perf_counter() - t_phase
+    row.update(got)
+    row["numbers"] = times
+    row["left"] = left
+    a, b, c, d, e = (got.get(k, {}) for k in "abcde")
+    sleep_job = b.get("sleep_job", {})
+    pool_ids = [p[2] for p in d.get("pool_nodes", [])]
+    gpu_task = {"device": "cuda:0", "shape": [4, cfg.vocab_size],
+                "dtype": "torch.bfloat16", "gpu_ids": [0],
+                "cuda_visible_devices": "0", "launches": _OPS_LAUNCHES,
+                "sha256_equal": True}
+    checks = {
+        "driver_launches": ref["launches"] == _OPS_LAUNCHES,
+        "a_status_gpu": (a.get("status_rc") == 0 and cards == 1
+                         and a.get("status_gpu_line") == [cards, cards]),
+        "a_list_nodes_gpu": (a.get("list_rc") == 0
+                             and a.get("list_nodes_gpu") == [(0, cards)]),
+        "b_succeeded": b.get("status") == "SUCCEEDED",
+        "b_forward": all(b.get(k) == v for k, v in gpu_task.items()),
+        "b_cli_logs": (b.get("cli_logs_rc") == 0
+                       and b.get("cli_logs_same_result") is True),
+        "b_sleep_stopped": (sleep_job.get("stop_rc") == 0
+                            and sleep_job.get("stop_out") == "True"
+                            and sleep_job.get("status") == "STOPPED"
+                            and sleep_job.get("group_before", 0) >= 1
+                            and sleep_job.get("group_after") == []),
+        "c_cluster_gpu": (c.get("gpu_total") == cards
+                          and c.get("gpu_available") == cards),
+        "c_jobs": c.get("jobs") == [("ops_layer_forward", "SUCCEEDED"),
+                                    ("ops_layer_sleep", "STOPPED")],
+        "c_ui": c.get("ui_gpu_tile") is True,
+        "c_endpoints": (c.get("endpoints", 0) > 0
+                        and c.get("bad_endpoints") == []),
+        "c_doctor": c.get("doctor_rc") == 0,
+        "c_stop": c.get("stop_rc") == 0 and c.get("head_exit") is not None,
+        "c_no_process_left": c.get("left") == [],
+        "d_pool_node": (len(pool_ids) == 1
+                        and d["pool_nodes"][0][1] == 1.0),
+        "d_forward": all(d.get(k) == v for k, v in gpu_task.items()),
+        "d_scaled_to_zero": (d.get("pool_after") == [] and pool_ids
+                             and [r for r in d.get("scale_requests", [])
+                                  if r[1]] == [(0, pool_ids)]),
+        "d_no_process_left": d.get("left") == [],
+        "e_node_gpu": (len(e.get("nodes", [])) == 1
+                       and e["nodes"][0][1] == 1.0),
+        "e_sees_card": (e.get("device_count") == 1
+                        and e.get("device_name_equal") is True
+                        and e.get("gpu_ids") == [0]),
+        "e_no_process_left": e.get("left") == [],
+        "no_process_left": not left}
+    row["checks"] = checks
+    row["ok"] = all(checks.values())
+    _emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"ops_layer phase failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return b["launches"]["flash_fwd"], d["launches"]["flash_fwd"]
 
 
 class LlamaStage:
@@ -5322,6 +5884,8 @@ def run(seed: int) -> int:
     dag_launches = attempt("dag_workflow", phase_dag_workflow, seed)
     torch.cuda.empty_cache()
     attempt("microbenchmark", phase_microbenchmark)
+    ops_launches = attempt("ops_layer", phase_ops_layer, seed)
+    torch.cuda.empty_cache()
     tpipe_launches = attempt("train_pipeline", phase_train_pipeline, fa, T,
                              TR, C, seed)
     torch.cuda.empty_cache()
@@ -5359,6 +5923,8 @@ def run(seed: int) -> int:
             "data_trainer_step": data_launches["flash_fwd"],
             "dag_forward": dag_launches[0],
             "workflow_forward": dag_launches[1],
+            "job_forward": ops_launches[0],
+            "gke_pool_forward": ops_launches[1],
             "train_pipeline": tpipe_launches["flash_fwd"],
             **_axis_launches(tensor_row, pipeline_row, "flash_fwd")}}]
     for name, line_no, source, err in (

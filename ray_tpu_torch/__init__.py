@@ -21,8 +21,12 @@ A2C, DQN and the rest of the reference's algorithms), Data (``data``:
 datasets of numpy-column blocks, the shuffle exchange, ``streaming_split``
 and ``iter_torch_batches`` onto the card), ``dag`` (``.bind()`` graphs),
 ``workflow`` (durable DAG runs with per-step checkpoints and ``resume``)
-and ``utils`` (``ActorPool``, ``Queue``, the multiprocessing ``Pool``,
-joblib, Dask and the core microbenchmark).
+``utils`` (``ActorPool``, ``Queue``, the multiprocessing ``Pool``,
+joblib, Dask, the core microbenchmark and the Spark shim), and the ops
+layer: the CLI (``scripts``; ``python -m ray_tpu_torch``), job
+submission (``jobs``), the dashboard and ``doctor`` (``dashboard``,
+``dashboard_ui``) and the autoscaler with a GKE GPU node pool
+(``autoscaler``).
 Entry points of the model stack, RLlib's learners and
 ``iter_torch_batches`` run on
 CUDA unless the caller passes ``device="cpu"``.
@@ -44,7 +48,8 @@ _SUBMODULES = ("models", "ops", "parallel", "entry", "interop", "core",
                "serve", "train", "tune", "rllib", "collective", "data",
                "dag", "workflow", "utils", "cluster_utils", "tracing",
                "metrics", "profiling", "runtime_env", "state",
-               "trace_analysis", "usage_stats")
+               "trace_analysis", "usage_stats", "jobs", "scripts",
+               "dashboard", "dashboard_ui", "autoscaler")
 
 _API = ("ActorClass", "ActorHandle", "NodeAffinitySchedulingStrategy",
         "PlacementGroup", "PlacementGroupSchedulingStrategy",

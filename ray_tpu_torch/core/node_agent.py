@@ -463,6 +463,14 @@ def main(argv=None):
                          "tags its launches to reclaim them later)")
     args = ap.parse_args(argv)
     labels = dict(kv.split("=", 1) for kv in args.label)
+    # SIGTERM/SIGINT are caught from the start: one that lands while the
+    # agent is still joining (a launcher stopping its node right after
+    # the cluster came up) is held until the agent is built, then shuts
+    # it down like any other. The default action would end the process
+    # with its arena created and never unlinked.
+    stop_requested = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *a: stop_requested.set())
+    signal.signal(signal.SIGINT, lambda *a: stop_requested.set())
     agent = NodeAgent(args.address, num_cpus=args.num_cpus,
                       num_gpus=args.num_gpus,
                       object_store_memory=args.object_store_memory,
@@ -486,6 +494,8 @@ def main(argv=None):
     atexit.register(_unlink_arena)
     signal.signal(signal.SIGTERM, lambda *a: agent._shutdown.set())
     signal.signal(signal.SIGINT, lambda *a: agent._shutdown.set())
+    if stop_requested.is_set():
+        agent._shutdown.set()
     agent.run_forever()
 
 

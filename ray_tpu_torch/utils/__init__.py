@@ -3,10 +3,10 @@
 Ref parity for the `ray.util` ecosystem surface: ActorPool
 (util/actor_pool.py), Queue (util/queue.py), multiprocessing Pool
 (util/multiprocessing/pool.py), joblib backend (util/joblib/), with the
-Dask scheduler (``utils.dask``) and the core microbenchmark
-(``python -m ray_tpu_torch.utils.microbenchmark``) beside them. Of
-``ray_tpu.utils`` only the spark shim is not ported yet: its workers run
-the command line's ``start``, which comes with the CLI.
+Dask scheduler (``utils.dask``), the core microbenchmark
+(``python -m ray_tpu_torch.utils.microbenchmark``) and the Spark shim
+(``utils.spark``, whose workers run the CLI's ``start --address``)
+beside them.
 """
 
 from ray_tpu_torch.utils.actor_pool import ActorPool

@@ -1,6 +1,8 @@
-"""The Dask scheduler of the port (the cases of tests/test_ecosystem.py's
-TestDaskOnRay on ray_tpu_torch) and the port's core microbenchmark, run
-as its command and held to the reference's metric names."""
+"""The Dask scheduler and the Spark shim of the port (the cases of
+tests/test_ecosystem.py's TestDaskOnRay and TestSparkSeam on
+ray_tpu_torch, with a Spark worker node that declares a GPU) and the
+port's core microbenchmark, run as its command and held to the
+reference's metric names."""
 
 import ast
 import json
@@ -12,6 +14,7 @@ from pathlib import Path
 import pytest
 
 import ray_tpu_torch
+from torch_port_util import deadline
 
 _ROOT = Path(__file__).resolve().parent.parent
 
@@ -67,6 +70,77 @@ class TestDaskOnRay:
             assert float((x + x).sum().compute()) == 20000.0
         finally:
             disable_dask_on_ray()
+
+
+class TestSparkSeam:
+    @deadline(150)
+    def test_subprocess_launcher_cluster(self, rt):
+        """The injectable-launcher path: N worker 'executors' join the
+        head exactly as Spark tasks would (ref: setup_ray_cluster)."""
+        from ray_tpu_torch.utils.spark import (setup_ray_cluster,
+                                               shutdown_ray_cluster,
+                                               subprocess_launcher)
+
+        try:
+            addr = setup_ray_cluster(num_worker_nodes=2,
+                                     num_cpus_per_node=1,
+                                     launcher=subprocess_launcher,
+                                     timeout_s=90)
+            assert addr.startswith("tcp:")
+            assert len(ray_tpu_torch.nodes()) >= 3
+
+            @ray_tpu_torch.remote(num_cpus=1)
+            def where():
+                return os.getpid()
+
+            pids = ray_tpu_torch.get([where.remote() for _ in range(4)],
+                                     timeout=120)
+            assert len(set(pids)) >= 1
+        finally:
+            shutdown_ray_cluster()
+
+    def test_double_setup_rejected(self, rt):
+        from ray_tpu_torch.utils import spark as spark_mod
+
+        spark_mod._state["address"] = "tcp:x"
+        try:
+            with pytest.raises(RuntimeError, match="already up"):
+                spark_mod.setup_ray_cluster(
+                    num_worker_nodes=1,
+                    launcher=spark_mod.subprocess_launcher)
+        finally:
+            spark_mod._state["address"] = None
+
+    @deadline(150)
+    def test_worker_node_declares_its_gpus(self, rt):
+        """``num_gpus_per_node`` reaches the joined node's ``start
+        --num-gpus`` (a logical GPU on this CPU): a num_gpus=1 task
+        placed on it gets GPU 0 there."""
+        from ray_tpu_torch.core.api import NodeAffinitySchedulingStrategy
+        from ray_tpu_torch.utils.spark import (setup_ray_cluster,
+                                               shutdown_ray_cluster,
+                                               subprocess_launcher)
+
+        try:
+            setup_ray_cluster(num_worker_nodes=1, num_cpus_per_node=1,
+                              num_gpus_per_node=1,
+                              launcher=subprocess_launcher, timeout_s=90)
+            (node,) = [n for n in ray_tpu_torch.state.list_nodes()
+                       if n["is_remote"]]
+            assert node["resources_total"].get("GPU") == 1.0
+
+            @ray_tpu_torch.remote(num_gpus=1, num_cpus=0)
+            def visible():
+                return (os.environ.get("CUDA_VISIBLE_DEVICES"),
+                        ray_tpu_torch.get_gpu_ids())
+
+            placed = visible.options(
+                scheduling_strategy=NodeAffinitySchedulingStrategy(
+                    node["node_idx"]))
+            assert ray_tpu_torch.get(placed.remote(), timeout=120) == \
+                ("0", [0])
+        finally:
+            shutdown_ray_cluster()
 
 
 def _reference_metric_names() -> set:

@@ -352,3 +352,86 @@ def test_bind_builds_nodes_and_utils_exports_the_references_names():
     assert got["mods"] == []
     assert len(set(got["all"])) == len(got["all"])
     assert set(got["all"]) == _reference_public("ray_tpu/utils/__init__.py")
+
+
+_OPS_MODULES = ("ray_tpu_torch.jobs", "ray_tpu_torch.scripts",
+                "ray_tpu_torch.__main__", "ray_tpu_torch.dashboard",
+                "ray_tpu_torch.dashboard_ui", "ray_tpu_torch.autoscaler",
+                "ray_tpu_torch.autoscaler.autoscaler",
+                "ray_tpu_torch.autoscaler.batching_provider",
+                "ray_tpu_torch.autoscaler.gke", "ray_tpu_torch.utils.spark")
+
+
+def test_ops_layer_loads_no_torch_jax_or_reference():
+    """The CLI, jobs, the dashboard, the autoscaler and the Spark shim
+    load no torch, no JAX and nothing of ray_tpu at import (a head the
+    CLI starts does not pay for torch's import), and each is one of the
+    package's lazy names."""
+    code = (
+        "import importlib, json, sys\n"
+        "import ray_tpu_torch as rt\n"
+        f"for m in {_OPS_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "lazy = [callable(rt.scripts.main), rt.jobs.JOB_MANAGER_NAME,\n"
+        "        rt.dashboard.DOCTOR_ENDPOINTS[0],\n"
+        "        'GPU avail / total' in rt.dashboard_ui.INDEX_HTML,\n"
+        "        rt.autoscaler.FakeGkeGpuCloud.__name__]\n"
+        "print(json.dumps({'lazy': lazy,\n"
+        "    'mods': sorted(m for m in sys.modules\n"
+        "                   if m.partition('.')[0] in ('torch', 'jax',\n"
+        "                                              'ray_tpu'))}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(_ROOT)})
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"lazy": [True, "_ray_tpu_job_manager", "/", True,
+                            "FakeGkeGpuCloud"], "mods": []}
+    assert set(_OPS_MODULES) <= set(_port_modules())
+
+
+def _reference_subcommands() -> list:
+    """Every subcommand ``ray_tpu.scripts.build_parser`` adds, read from
+    its text."""
+    import ast
+
+    tree = ast.parse((_ROOT / "ray_tpu" / "scripts.py").read_text())
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+              and n.name == "build_parser")
+    return [c.args[0].value for c in ast.walk(fn)
+            if isinstance(c, ast.Call) and getattr(c.func, "attr", "") ==
+            "add_parser" and getattr(c.func.value, "id", "") == "sub"]
+
+
+def test_cli_help_lists_every_reference_subcommand():
+    """``python -m ray_tpu_torch --help`` names every top-level command
+    of the reference's CLI, and ``start --help`` takes ``--num-gpus``
+    where the reference takes ``--num-tpus``."""
+    subs = _reference_subcommands()
+    assert {"start", "stop", "status", "profile", "drain", "doctor",
+            "timeline", "analyze", "list", "memory", "summary", "serve",
+            "job"} == set(subs)
+    env = {**os.environ, "PYTHONPATH": str(_ROOT)}
+    out = subprocess.run([sys.executable, "-m", "ray_tpu_torch", "--help"],
+                         cwd=_ROOT, capture_output=True, text=True,
+                         timeout=120, env=env)
+    assert out.returncode == 0, out.stderr
+    listed = out.stdout.split("{", 1)[1].split("}", 1)[0].split(",")
+    assert sorted(listed) == sorted(subs)
+    start = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch", "start", "--help"],
+        cwd=_ROOT, capture_output=True, text=True, timeout=120, env=env)
+    assert start.returncode == 0, start.stderr
+    assert "--num-gpus" in start.stdout and "--num-tpus" not in start.stdout
+
+
+def test_autoscaler_exports_the_references_names_with_gpu_pools():
+    """``ray_tpu_torch.autoscaler.__all__`` is the reference's with Tpu
+    turned into Gpu; every name is there."""
+    import ray_tpu_torch.autoscaler as port
+
+    ref = _reference_public("ray_tpu/autoscaler/__init__.py")
+    assert "FakeGkeTpuCloud" in ref
+    assert set(port.__all__) == {n.replace("Tpu", "Gpu") for n in ref}
+    assert len(set(port.__all__)) == len(port.__all__)
+    assert all(hasattr(port, n) for n in port.__all__)

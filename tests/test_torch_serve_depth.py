@@ -1,10 +1,8 @@
 """The port's Serve in depth: the cases of tests/test_serve_depth.py
 (streaming responses, model multiplexing, declarative config, the proxy
 fleet) and tests/test_serve_grpc.py (gRPC ingress; skipped without grpc,
-as there), one for one, on ray_tpu_torch.init(num_cpus=4, num_gpus=0).
-
-test_serve_depth.py::test_cli_serve_and_job_parsers waits for the port's
-CLI (``scripts``, ROADMAP A2b)."""
+as there), one for one, on ray_tpu_torch.init(num_cpus=4, num_gpus=0), with
+test_cli_serve_and_job_parsers on the port's CLI (``scripts``)."""
 
 import json
 import urllib.request
@@ -137,6 +135,22 @@ def test_deploy_from_config(serve_rt, tmp_path):
     # the num_replicas override took effect
     deps = st["cfg_app"]["deployments"]
     assert deps["Echo"]["target_replicas"] == 2
+
+
+def test_cli_serve_and_job_parsers():
+    from ray_tpu_torch.scripts import build_parser
+
+    p = build_parser()
+    a = p.parse_args(["serve", "deploy", "cfg.yaml"])
+    assert a.serve_cmd == "deploy" and a.config_file == "cfg.yaml"
+    a = p.parse_args(["serve", "run", "mod:app", "--name", "x"])
+    assert a.import_path == "mod:app" and a.name == "x"
+    a = p.parse_args(["serve", "status"])
+    assert a.serve_cmd == "status"
+    a = p.parse_args(["job", "submit", "--", "python", "x.py"])
+    assert a.job_cmd == "submit"
+    a = p.parse_args(["job", "logs", "some-job"])
+    assert a.job_id == "some-job"
 
 
 def test_streaming_with_multiplexed_model(serve_rt):

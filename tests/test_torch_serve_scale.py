@@ -5,9 +5,8 @@ one, on ray_tpu_torch.init(num_cpus=4, num_gpus=0).
 
 test_warm_object_lands_on_remote_node and
 test_broadcast_cold_start_bounded_root_egress run on a
-ray_tpu_torch.cluster_utils.Cluster with real agent nodes. Waiting for a
-module the port does not have yet (ROADMAP A2b): TestDoctorServeWarnings
-(3 cases, ``dashboard``)."""
+ray_tpu_torch.cluster_utils.Cluster with real agent nodes.
+TestDoctorServeWarnings reads the port's ``dashboard``."""
 
 import threading
 import time
@@ -269,6 +268,49 @@ class TestHintDedupe:
             assert ray_tpu_torch.get(a.f.remote(big), timeout=60) == 0
         assert ctx.prefetch_hints_sent - sent0 >= 1
         assert ctx.prefetch_hints_suppressed - sup0 >= 4
+
+
+class TestDoctorServeWarnings:
+    def _status(self, reversals=0, cold_p95=0.0, cold_count=5):
+        return {"app1": {"deployments": {"Model": {"autoscaler": {
+            "enabled": True, "reversals_60s": reversals,
+            "cold_start": {"count": cold_count, "p50_s": 1.0,
+                           "p95_s": cold_p95}}}}}}
+
+    def test_flap_warning(self):
+        from ray_tpu_torch.dashboard import _serve_warnings
+
+        cfg = get_config()
+        assert _serve_warnings(self._status(reversals=2), cfg) == []
+        warns = _serve_warnings(
+            self._status(reversals=cfg.serve_flap_warn_reversals + 1), cfg)
+        assert len(warns) == 1 and "flapping" in warns[0]
+
+    def test_cold_start_warning(self):
+        from ray_tpu_torch.dashboard import _serve_warnings
+
+        cfg = get_config()
+        bound = cfg.serve_cold_start_p95_warn_s
+        assert _serve_warnings(self._status(cold_p95=bound / 2), cfg) == []
+        warns = _serve_warnings(self._status(cold_p95=bound + 5), cfg)
+        assert len(warns) == 1 and "cold-start p95" in warns[0]
+        # too few samples: p95 of one start is noise, not a trend
+        assert _serve_warnings(
+            self._status(cold_p95=bound + 5, cold_count=1), cfg) == []
+
+    def test_disabled_autoscaler_skips_flap_but_not_cold_start(self):
+        from ray_tpu_torch.dashboard import _serve_warnings
+
+        # flap warnings are autoscaler-only, but cold-start p95 applies
+        # to manual fleets too (a fixed num_replicas deployment missing
+        # the weights-by-ref path is exactly what it flags)
+        status = {"a": {"deployments": {"d": {"autoscaler": {
+            "enabled": False, "reversals_60s": 99,
+            "cold_start": {"count": 9, "p95_s": 9999}}}}}}
+        warns = _serve_warnings(status, get_config())
+        assert len(warns) == 1 and "cold-start" in warns[0]
+        status["a"]["deployments"]["d"]["autoscaler"]["cold_start"] = {}
+        assert _serve_warnings(status, get_config()) == []
 
 
 class TestSlowNodeRouting:

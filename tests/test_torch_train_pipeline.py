@@ -6,9 +6,9 @@ hint coalescing, and the get_config()-before-init() orphan fix.
 
 The 2-node cases build a ray_tpu_torch.cluster_utils.Cluster with a remote
 node agent. test_pipeline_2node_smoke reads the per-stage phase rows
-through ``state.phase_summary`` and ``state.pipeline_stage_summary``, the
-functions behind the reference dashboard's /api/summary/tasks and
-/api/summary/pipeline (the port has no dashboard yet, ROADMAP A2b).
+through ``state.summarize_tasks`` and ``state.pipeline_stage_summary``,
+and through the port's dashboard at /api/summary/tasks and
+/api/summary/pipeline, as the reference's does.
 """
 
 import threading
@@ -546,13 +546,17 @@ def test_pipeline_2node_smoke():
     host's transfer server serves stage 0's outputs to the remote
     stage), dispatch hints drive the prefetch machinery, and the
     per-stage phase rows show up in ``state.summarize_tasks()`` and
-    ``state.pipeline_stage_summary()`` (the reference reads them through
-    its dashboard's /api/summary/tasks and /api/summary/pipeline)."""
+    ``state.pipeline_stage_summary()``, and through the dashboard's
+    /api/summary/tasks and /api/summary/pipeline."""
+    import json
+    import urllib.request
+
     from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.dashboard import start_dashboard
 
     cluster = Cluster(initialize_head=True,
                       head_node_args={"num_cpus": 2, "num_gpus": 0})
-    handle = None
+    handle = dash = None
     try:
         handle = cluster.add_remote_node(num_cpus=2)
         import ray_tpu_torch.core.api as core_api
@@ -595,8 +599,23 @@ def test_pipeline_2node_smoke():
         rows = state.pipeline_stage_summary()
         assert set(rows) == {0, 1}
         assert "transfer_ms_p95" in rows[1]
+        # the same rows over HTTP (JSON keys are strings)
+        dash = start_dashboard(port=0)
+        with urllib.request.urlopen(
+                dash.url + "/api/summary/tasks", timeout=10) as r:
+            phases = json.load(r)["phases"]
+        for func in want:
+            assert func in phases, (func, sorted(phases))
+            assert phases[func]["exec"]["count"] >= 3
+        with urllib.request.urlopen(
+                dash.url + "/api/summary/pipeline", timeout=10) as r:
+            rows = json.load(r)
+        assert set(rows) == {"0", "1"}
+        assert "transfer_ms_p95" in rows["1"]
         pipe.shutdown()
     finally:
+        if dash is not None:
+            dash.stop()
         if handle is not None:
             handle.terminate()
         cluster.shutdown()

@@ -4,8 +4,8 @@ runtime with torch-autograd stages — repair-planner units, the actor-death
 surface the planner relies on, graceful node drain, and inline-promoted
 prefetch-hint tagging.
 
-test_doctor_flags_stuck_drain waits for the port's ``dashboard`` (its
-``doctor_warnings``; ROADMAP A2b). The chaos cases (slow tier, as in the
+test_doctor_flags_stuck_drain reads the port's ``dashboard``
+(``doctor_warnings``). The chaos cases (slow tier, as in the
 reference) kill and drain REAL agent nodes of a
 ray_tpu_torch.cluster_utils.Cluster.
 """
@@ -68,6 +68,24 @@ class TestPlanRepair:
         with pytest.raises(ValueError, match="no surviving node"):
             pl.plan_repair([0], [0], [], ckpt_wave=-1, failed_wave=0,
                            wave_sizes=[1])
+
+
+@deadline(60)
+def test_doctor_flags_stuck_drain(monkeypatch, ray_start):
+    """A node still `draining` past drain_deadline_s (+ escalation
+    slack) means drain_forced never fired — doctor must flag it; a
+    fresh drain inside the window must not."""
+    from ray_tpu_torch.core.config import get_config
+    from ray_tpu_torch.dashboard import doctor_warnings
+
+    drain_s = get_config().drain_deadline_s
+    rows = [{"node_idx": 7, "alive": True, "draining": True,
+             "drain_age_s": drain_s + 30.0}]
+    monkeypatch.setattr(state, "list_nodes", lambda *a, **k: rows)
+    warns = [w for w in doctor_warnings() if "stuck draining" in w]
+    assert len(warns) == 1 and "node 7" in warns[0], warns
+    rows[0]["drain_age_s"] = drain_s * 0.5
+    assert not [w for w in doctor_warnings() if "stuck draining" in w]
 
 
 # ============================================= actor-death surface
