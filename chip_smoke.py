@@ -203,6 +203,28 @@ phase:
             is left. Numbers: the walls of (a)-(e), each fresh process's
             start, the job's submit-to-result, the pool's scale-up and
             scale-down seconds
+  clients   the port's C++ and Java clients against its cross-language
+            gateway: (a) native/build.py builds task_client and
+            client_example (g++); (b) ray_tpu_torch.init(num_gpus=<the
+            card count>) and head.enable_tcp: the gateway's cluster op
+            reports GPU equal to the card count; (c) task_client
+            actor-create chip_smoke:ClientsActor with num_gpus=1, then
+            actor-call forward [seed]: the actor runs ops_forward_task's
+            forward (4 layers) on cuda:0 and replies in JSON: the logits'
+            SHA-256 equal to the driver's forward at the same seed and
+            depth, B1 4, get_gpu_ids() [0]; (d) client_example puts the
+            forward's [4, 2048] tokens as decimal text into the node's
+            arena, actor-call forward_from_store reads them with get_raw,
+            runs the same forward (bitwise the driver's, B1 4) and puts the
+            4 rows' last-position argmax as text, which client_example
+            gets: equal to the driver's argmax; (e) a CPU task by
+            descriptor over the head's unix socket, a missing function
+            (exit 1, "error" on stderr), actor-kill, after which
+            actor-call exits 1; (f) with a JDK, (c)'s actor-call through
+            RayTpuClient.java, else {"java": "no JDK"}; (g) shutdown()
+            leaves no worker. Numbers: each step's wall, the actor's
+            import, CUDA context, params and first forward; the phase's
+            budget is 45 s
   train_pipeline  the train cell at 4 of its 16 layers (full width) as
             the port's MPMD pipeline (ray_tpu_torch.train.Pipeline) on a
             cluster_utils.Cluster whose head has no GPU and whose four
@@ -489,6 +511,14 @@ _OPS_TIMEOUT_S = 300
 # ray_tpu_torch start`, node agents), workers, the job's entrypoint
 _OPS_PROBES = (_WORKER_PROBE, "ray_tpu_torch[.]core[.]node_agent",
                "ray_tpu_torch [s]tart", "ops_layer_[j]ob")
+# clients: the C++-created actor's forward as ops_layer's (B1 4); the
+# phase's budget is 45 s; the processes it may start: workers and the
+# native and Java clients
+_CLIENTS_BUDGET_S = 45.0
+_CLIENTS_ACTOR = "cpp-forward"
+_CLIENTS_TIMEOUT_S = 120
+_CLIENTS_PROBES = (_WORKER_PROBE, "[t]ask_client-", "[c]lient_example-",
+                   "[R]ayTpuClient")
 # serve: phase engine's prompt lengths and new tokens (its fp32 check), and
 # the 8 warm-up requests the bf16 replica serves before the timed ones
 # (phase serving warms its engine up in process; a replica cannot be)
@@ -1568,11 +1598,11 @@ def _llama_bf16(**kw):
     return C.get_config("llama3-1b", param_dtype=torch.bfloat16, **kw)
 
 
-def counted_forward(params, cfg, seed: int) -> dict:
-    """The forward at [4, 2048] (phase forward's tokens) in this process,
-    TF32 off, B1's launches counted around it: {"launches", "logits" (the
-    last position's, fp32 from the forward as the reference's, in bf16),
-    "s"}."""
+def counted_forward(params, cfg, seed: int, tokens=None) -> dict:
+    """The forward at [4, 2048] (phase forward's tokens, or ``tokens``) in
+    this process, TF32 off, B1's launches counted around it: {"launches",
+    "logits" (the last position's, fp32 from the forward as the
+    reference's, in bf16), "s"}."""
     import torch
 
     from ray_tpu_torch.models import transformer as T
@@ -1580,7 +1610,8 @@ def counted_forward(params, cfg, seed: int) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    tokens = forward_tokens(cfg, seed)
+    if tokens is None:
+        tokens = forward_tokens(cfg, seed)
     _zero_counts(fa)
     t0 = time.perf_counter()
     logits = T.forward(params, tokens, cfg)
@@ -3206,6 +3237,11 @@ def ops_forward_task(seed: int) -> dict:
     and _TRAINER_LAYERS layers from ``seed`` on cuda:0, counted_forward at
     [4, 2048]; the logits' SHA-256 and B1's launches in this process, with
     the lease this worker sees."""
+    return _forward_from_seed(seed)[0]
+
+
+def _forward_from_seed(seed: int) -> tuple:
+    """ops_forward_task's work -> (its dict, the params, the config)."""
     t0 = time.time()
     import torch
 
@@ -3230,7 +3266,8 @@ def ops_forward_task(seed: int) -> dict:
             "params_s": t_params - t_ctx,
             "gpu_ids": ray_tpu_torch.get_gpu_ids(),
             "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
-            "proc_start": _proc_start_time(), "t0": t0, "t1": time.time()}
+            "proc_start": _proc_start_time(), "t0": t0,
+            "t1": time.time()}, params, cfg
 
 
 def ops_device_task() -> dict:
@@ -3261,11 +3298,11 @@ rt.shutdown()
 """
 
 
-def _ops_left() -> list:
+def _ops_left(probes=_OPS_PROBES) -> list:
     """Processes of the phase still alive (heads, agents, workers, the
     job's entrypoint), as ``pid cmdline`` lines."""
     left = []
-    for probe in _OPS_PROBES:
+    for probe in probes:
         out = subprocess.run(["pgrep", "-af", probe], capture_output=True,
                              text=True)
         left += [ln for ln in out.stdout.splitlines()
@@ -3273,10 +3310,10 @@ def _ops_left() -> list:
     return left
 
 
-def _ops_settle(timeout: float = 15.0) -> list:
+def _ops_settle(timeout: float = 15.0, probes=_OPS_PROBES) -> list:
     t_end = time.monotonic() + timeout
     while True:
-        left = _ops_left()
+        left = _ops_left(probes)
         if not left or time.monotonic() > t_end:
             return left
         time.sleep(0.1)
@@ -3702,6 +3739,279 @@ def phase_ops_layer(seed: int):
         raise AssertionError(f"ops_layer phase failed: "
                              f"{[k for k, v in checks.items() if not v]}")
     return b["launches"]["flash_fwd"], d["launches"]["flash_fwd"]
+
+
+class ClientsActor:
+    """Phase clients' num_gpus=1 actor, created by descriptor from C++
+    (``task_client ... actor-create chip_smoke:ClientsActor``). The gateway
+    replies in JSON, so its methods return plain values only."""
+
+    def forward(self, seed: int) -> dict:
+        """ops_forward_task's forward; the params stay for
+        forward_from_store."""
+        out, self.params, self.cfg = _forward_from_seed(seed)
+        self.seed = seed
+        return out
+
+    def forward_from_store(self, oid_hex: str) -> dict:
+        """The same forward on tokens a native process put into this node's
+        arena (decimal text, a row a line, read with get_raw); puts the
+        rows' last-position argmax as text under a fresh id (put_raw)."""
+        import torch
+
+        from ray_tpu_torch.core.context import get_context
+        from ray_tpu_torch.core.ids import ObjectID
+
+        t0 = time.time()
+        store = get_context().store
+        text = store.get_raw(ObjectID(bytes.fromhex(oid_hex)))
+        if text is None:
+            raise KeyError(f"no object {oid_hex} in this node's arena")
+        tokens = torch.tensor([[int(t) for t in row.split()]
+                               for row in text.decode().splitlines()],
+                              dtype=torch.int32, device="cuda")
+        t_read = time.time()
+        out = counted_forward(self.params, self.cfg, self.seed, tokens)
+        put = ObjectID(os.urandom(20))
+        store.put_raw(put, " ".join(
+            str(i) for i in out["logits"].argmax(-1).tolist()).encode())
+        return {"sha256": _logits_sha256(out["logits"]),
+                "launches": out["launches"],
+                "device": str(out["logits"].device),
+                "tokens": list(tokens.shape), "text_bytes": len(text),
+                "read_s": t_read - t0, "forward_s": out["s"],
+                "argmax_oid": put.hex(), "s": time.time() - t0}
+
+
+def clients_cpu_task(a: int, b: int) -> list:
+    """Phase clients (e)'s CPU task by descriptor: [a + b, this pid]."""
+    return [a + b, os.getpid()]
+
+
+def _gateway_call(addr: str, req: dict) -> dict:
+    """One request to the head's cross-language gateway, framed as the C++
+    and Java clients frame it: an 8-byte little-endian length and a pickled
+    (XLANG_CALL, 1, json) tuple out; frames back until a raw one (the
+    length's top bit set), whose JSON is the reply."""
+    import pickle
+    import socket
+    import struct
+
+    from ray_tpu_torch.core import protocol as P
+
+    host, port = addr.removeprefix("tcp:").rsplit(":", 1)
+    body = pickle.dumps((P.XLANG_CALL, 1, json.dumps(req).encode()),
+                        protocol=3)
+    with socket.create_connection((host, int(port)), timeout=60) as sock:
+        sock.sendall(struct.pack("<Q", len(body)) + body)
+        f = sock.makefile("rb")
+        while True:
+            (n,) = struct.unpack("<Q", f.read(8))
+            data = f.read(n & ~(1 << 63))
+            if n >> 63:
+                return json.loads(data)
+
+
+def _client(*args, timeout: float = _CLIENTS_TIMEOUT_S) -> dict:
+    """One native client run: its exit code, stdout, stderr and seconds."""
+    t0 = time.perf_counter()
+    out = subprocess.run(list(args), capture_output=True, text=True,
+                         timeout=timeout)
+    return {"rc": out.returncode, "out": out.stdout.strip(),
+            "err": out.stderr.strip()[-2000:],
+            "s": time.perf_counter() - t0}
+
+
+def _json_or_none(text: str):
+    try:
+        return json.loads(text)
+    except ValueError:
+        return None
+
+
+def _clients_forward_ok(got: dict, sha: str) -> bool:
+    """What every forward reply of the clients phase must hold: logits
+    bitwise the driver's, B1's launches, and the card."""
+    return (got.get("sha256") == sha
+            and got.get("launches") == _OPS_LAUNCHES
+            and got.get("device") == "cuda:0")
+
+
+def _clients_forward_row(got, sha: str, cfg) -> dict:
+    """What (c)'s and (f)'s forward reply must hold, and the actor's split."""
+    got = got or {}
+    return {"sha256_equal": got.get("sha256") == sha,
+            "launches": got.get("launches"), "device": got.get("device"),
+            "shape": got.get("shape"), "dtype": got.get("dtype"),
+            "gpu_ids": got.get("gpu_ids"),
+            "ok": (_clients_forward_ok(got, sha)
+                   and got.get("shape") == [4, cfg.vocab_size]
+                   and got.get("dtype") == "torch.bfloat16"
+                   and got.get("gpu_ids") == [0])}
+
+
+def phase_clients(seed: int):
+    """The port's C++ and Java clients on the card (the module's
+    docstring, clients). Returns B1's launches in the C++-created actor's
+    forward and in its forward on tokens from the arena."""
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.models import transformer as T
+    from ray_tpu_torch.native import build as NB
+
+    t_phase = time.perf_counter()
+    row = {"phase": "clients", "card": _nvidia_smi(),
+           "config": f"llama3-1b bf16, {_TRAINER_LAYERS} layers",
+           "tokens": [4, 2048], "budget_s": _CLIENTS_BUDGET_S}
+    cards = _smi_cards()
+    walls, checks = {}, {}
+    # the driver's forward at the same seed and depth
+    cfg = _llama_bf16(n_layers=_TRAINER_LAYERS)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(seed),
+                           cfg, device="cuda")
+    ref = counted_forward(params, cfg, seed)
+    tokens = forward_tokens(cfg, seed).tolist()
+    del params
+    torch.cuda.empty_cache()
+    sha = _logits_sha256(ref["logits"])
+    argmax = ref["logits"].argmax(-1).tolist()
+    checks["driver_launches"] = ref["launches"] == _OPS_LAUNCHES
+    walls["driver_forward_s"] = time.perf_counter() - t_phase
+
+    # (a) the binaries, from this checkout's sources; a build error fails
+    t0 = time.perf_counter()
+    bins = {}
+    for name in ("task_client", "client_example"):
+        t = time.perf_counter()
+        bins[name] = NB.build_binary(name)
+        walls[f"a_build_{name}_s"] = time.perf_counter() - t
+    walls["a_s"] = time.perf_counter() - t0
+    row["binaries"] = {n: os.path.relpath(p, _ROOT) for n, p in bins.items()}
+    tc, ce = bins["task_client"], bins["client_example"]
+
+    t0 = time.perf_counter()
+    info = ray_tpu_torch.init(num_gpus=cards)
+    got = {}
+    try:
+        # (b) the head and its gateway
+        addr = info.head.enable_tcp("127.0.0.1")
+        unix = f"unix:{info.head.session_dir}/head.sock"
+        store = ray_tpu_torch.nodes()[0]["store_name"]
+        cluster = _gateway_call(addr, {"op": "cluster"})
+        got["b_cluster"] = cluster
+        checks["b_cluster_gpu"] = (
+            cluster.get("status") == "ok" and cards >= 1
+            and cluster["result"]["resources"].get("GPU") == cards)
+        walls["b_s"] = time.perf_counter() - t0
+
+        # (c) a num_gpus=1 actor created and called from C++
+        t0 = time.perf_counter()
+        opts = {"name": _CLIENTS_ACTOR, "num_gpus": 1, "num_cpus": 0}
+        c_create = _client(tc, addr, "actor-create",
+                           "chip_smoke:ClientsActor", "[]", json.dumps(opts))
+        c_call = _client(tc, addr, "actor-call", _CLIENTS_ACTOR, "forward",
+                         json.dumps([seed]))
+        c = _json_or_none(c_call["out"])
+        walls["c_s"] = time.perf_counter() - t0
+        got["c"] = {"create": c_create, "call_rc": c_call["rc"],
+                    "call_err": c_call["err"], "call_s": c_call["s"],
+                    **_clients_forward_row(c, sha, cfg)}
+        if c:
+            got["c"]["actor_split"] = {
+                k: c[k] for k in ("import_s", "cuda_context_s", "params_s",
+                                  "forward_s")}
+            got["c"]["worker_age_at_call_s"] = c["t0"] - c["proc_start"]
+        checks["c_create"] = (c_create["rc"] == 0 and _json_or_none(
+            c_create["out"]) == {"actor": _CLIENTS_ACTOR})
+        checks["c_forward"] = c_call["rc"] == 0 and got["c"]["ok"]
+
+        # (d) tokens in through the arena from C++, the argmax back out
+        t0 = time.perf_counter()
+        text = "\n".join(" ".join(str(t) for t in r) for r in tokens)
+        oid = os.urandom(20).hex()
+        d_put = _client(ce, store, "put", oid, text)
+        d_call = _client(tc, addr, "actor-call", _CLIENTS_ACTOR,
+                         "forward_from_store", json.dumps([oid]))
+        d = _json_or_none(d_call["out"]) or {}
+        d_get = (_client(ce, store, "get", d["argmax_oid"])
+                 if "argmax_oid" in d else {"rc": None, "out": ""})
+        back = d_get["out"].split(": ", 1)[-1].split()
+        walls["d_s"] = time.perf_counter() - t0
+        got["d"] = {"text_bytes": len(text), "put": d_put,
+                    "call_rc": d_call["rc"], "call_err": d_call["err"],
+                    "call_s": d_call["s"],
+                    "sha256_equal": d.get("sha256") == sha,
+                    "launches": d.get("launches"),
+                    "device": d.get("device"), "tokens": d.get("tokens"),
+                    "read_s": d.get("read_s"),
+                    "forward_s": d.get("forward_s"),
+                    "get": {k: d_get.get(k) for k in ("rc", "s")},
+                    "argmax": back, "driver_argmax": argmax}
+        checks["d_put"] = (d_put["rc"] == 0
+                           and f"({len(text)} bytes)" in d_put["out"])
+        checks["d_forward"] = (d_call["rc"] == 0
+                               and _clients_forward_ok(d, sha)
+                               and d.get("tokens") == [4, 2048])
+        checks["d_argmax"] = (d_get["rc"] == 0
+                              and back == [str(i) for i in argmax])
+
+        # (e) a CPU task over the unix socket, a missing function
+        t0 = time.perf_counter()
+        e_task = _client(tc, unix, "chip_smoke:clients_cpu_task", "[2, 3]")
+        e_missing = _client(tc, unix, "chip_smoke:no_such_function")
+        walls["e_task_s"] = time.perf_counter() - t0
+        task_out = _json_or_none(e_task["out"])
+        got["e"] = {"task": e_task, "missing": e_missing}
+        checks["e_task"] = (e_task["rc"] == 0 and isinstance(task_out, list)
+                            and task_out[0] == 5
+                            and task_out[1] != os.getpid())
+        checks["e_missing"] = (e_missing["rc"] == 1
+                               and "error" in e_missing["err"].lower())
+
+        # (f) the Java client, where there is a JDK; before (e)'s kill
+        t0 = time.perf_counter()
+        if shutil.which("javac") and shutil.which("java"):
+            classes = NB.build_java()
+            f_call = _client("java", "-cp", classes, "RayTpuClient", addr,
+                             "actor-call", _CLIENTS_ACTOR, "forward",
+                             json.dumps([seed]))
+            reply = _json_or_none(f_call["out"]) or {}
+            f_row = _clients_forward_row(reply.get("result"), sha, cfg)
+            got["f"] = {"rc": f_call["rc"], "err": f_call["err"], **f_row}
+            checks["f_java"] = f_call["rc"] == 0 and f_row["ok"]
+        else:
+            got["f"] = {"java": "no JDK"}
+            _emit({"java": "no JDK"})
+        walls["f_s"] = time.perf_counter() - t0
+
+        # (e) the actor killed from C++; a call after it fails
+        t0 = time.perf_counter()
+        e_kill = _client(tc, addr, "actor-kill", _CLIENTS_ACTOR)
+        e_after = _client(tc, addr, "actor-call", _CLIENTS_ACTOR, "forward",
+                          json.dumps([seed]))
+        walls["e_kill_s"] = time.perf_counter() - t0
+        got["e"].update(kill=e_kill, after_kill=e_after)
+        checks["e_kill"] = e_kill["rc"] == 0 and e_after["rc"] == 1
+    finally:
+        # (g)
+        t0 = time.perf_counter()
+        ray_tpu_torch.shutdown()
+        left = _ops_settle(probes=_CLIENTS_PROBES)
+        walls["g_s"] = time.perf_counter() - t0
+    got["left"] = left
+    checks["g_no_process_left"] = not left
+    walls["wall_s"] = time.perf_counter() - t_phase
+    checks["within_budget"] = walls["wall_s"] <= _CLIENTS_BUDGET_S
+    row.update(got)
+    row["numbers"] = walls
+    row["checks"] = checks
+    row["ok"] = all(checks.values())
+    _emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"clients phase failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return got["c"]["launches"]["flash_fwd"], got["d"]["launches"]["flash_fwd"]
 
 
 class LlamaStage:
@@ -5886,6 +6196,8 @@ def run(seed: int) -> int:
     attempt("microbenchmark", phase_microbenchmark)
     ops_launches = attempt("ops_layer", phase_ops_layer, seed)
     torch.cuda.empty_cache()
+    clients_launches = attempt("clients", phase_clients, seed)
+    torch.cuda.empty_cache()
     tpipe_launches = attempt("train_pipeline", phase_train_pipeline, fa, T,
                              TR, C, seed)
     torch.cuda.empty_cache()
@@ -5925,6 +6237,8 @@ def run(seed: int) -> int:
             "workflow_forward": dag_launches[1],
             "job_forward": ops_launches[0],
             "gke_pool_forward": ops_launches[1],
+            "cpp_client_forward": clients_launches[0],
+            "cpp_store_forward": clients_launches[1],
             "train_pipeline": tpipe_launches["flash_fwd"],
             **_axis_launches(tensor_row, pipeline_row, "flash_fwd")}}]
     for name, line_no, source, err in (

@@ -28,11 +28,11 @@ import math
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ray_tpu_torch.models.config import TransformerConfig
 from ray_tpu_torch.models.transformer import (init_params, loss_fn,
                                               placed_logical_axes)
+from ray_tpu_torch.parallel._dtensor import is_dtensor
 from ray_tpu_torch.parallel.mesh import check_supported, mesh_device, psum
 from ray_tpu_torch.parallel.sharding import logical_placements, tree_shardings
 
@@ -71,8 +71,10 @@ def _unflatten(like, leaves: List[torch.Tensor]):
 def _sum_sq(x) -> torch.Tensor:
     """sum(x * x) of a leaf; for a DTensor, its shard's, all-reduced over
     the mesh axes that shard it (never over its replicas)."""
-    if not isinstance(x, DTensor):
+    if not is_dtensor(x):
         return (x * x).sum()
+    from torch.distributed.tensor import Shard
+
     local = x.to_local()
     names = x.device_mesh.mesh_dim_names
     axes = [names[i] for i, p in enumerate(x.placements)
@@ -87,7 +89,7 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def _local(x):
-    return x.to_local() if isinstance(x, DTensor) else x
+    return x.to_local() if is_dtensor(x) else x
 
 
 def _scalar(x: float, dtype: torch.dtype) -> float:
@@ -260,6 +262,8 @@ def state_shardings(cfg: TransformerConfig, tx: AdamW, mesh, rules=None):
     the reference matches them by shape, which two params of one shape but
     different axes, such as w_gate and w_down when d_ff == d_model, would
     confuse). The step and the count are replicated."""
+    from torch.distributed.tensor import Replicate
+
     del tx  # the moments' structure is the params'
     place = tree_shardings(mesh, placed_logical_axes(cfg, mesh), rules)
     repl = tuple(Replicate() for _ in mesh.mesh_dim_names)

@@ -40,7 +40,6 @@ from typing import Any, Dict
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -51,6 +50,7 @@ from ray_tpu_torch.models.moe import (ROUTER_GATHER, _silu,
                                       moe_param_logical_axes,
                                       moe_param_shapes)
 from ray_tpu_torch.ops.flash_attention import flash_attention
+from ray_tpu_torch.parallel._dtensor import is_dtensor
 from ray_tpu_torch.parallel.mesh import (BATCH_AXES, TOKEN_AXES, VirtualMesh,
                                          axis_groups, axis_index, axis_size,
                                          check_supported, psum,
@@ -466,8 +466,12 @@ def _layers(stacks, x, cfg: TransformerConfig, positions, mesh=None,
     # any policy but "dots" is "nothing", as in the reference
     kw = ({"context_fn": _DOTS_CONTEXT} if cfg.remat_policy == "dots"
           else {})
-    # jax.checkpoint's counterpart; without autograd there is nothing to save
-    remat = cfg.remat and torch.is_grad_enabled()
+    # jax.checkpoint's counterpart; with no gradient to take there is
+    # nothing to save (and torch's checkpoint imports torch._dynamo, which
+    # a forward-only process never needs)
+    remat = cfg.remat and torch.is_grad_enabled() and (
+        x.requires_grad
+        or any(w.requires_grad for st in stacks for w in st.values()))
 
     def body(x, lps):
         if remat:
@@ -481,7 +485,7 @@ def _layers(stacks, x, cfg: TransformerConfig, positions, mesh=None,
                           pipeline, cfg.pipeline_microbatches)
         return x, aux
     local = [{k: w.to_local() for k, w in st.items()
-              if isinstance(w, DTensor)} for st in stacks]
+              if is_dtensor(w)} for st in stacks]
     for i in range(cfg.n_layers):
         x, layer_aux = body(x, [layer({"layers": st}, i, loc)
                                 for st, loc in zip(stacks, local)])
@@ -534,6 +538,8 @@ def forward(params: Params, tokens, cfg: TransformerConfig, mesh=None,
         parts, aux = _virtual(params, tokens, cfg, mesh)
         logits = torch.cat(parts, dim=-1)
     else:
+        from torch.distributed.tensor import DTensor
+
         check_supported(mesh, cfg)
         parts, aux = _forward_local(params, _local_batch(tokens, mesh), cfg,
                                     mesh)
@@ -552,7 +558,7 @@ def forward(params: Params, tokens, cfg: TransformerConfig, mesh=None,
 def _local_batch(x, mesh):
     """This rank's [B_local, T_local] part of a global [B, T] batch array
     (placed by ("batch", "seq")), or a DTensor's local shard."""
-    if isinstance(x, DTensor):
+    if is_dtensor(x):
         return x.to_local()
     placements = logical_placements(mesh, ("batch", "seq"))
     for d, axes in ((0, BATCH_AXES), (1, ("sequence",))):

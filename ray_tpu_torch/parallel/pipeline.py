@@ -40,8 +40,8 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Shard
 
+from ray_tpu_torch.parallel._dtensor import is_dtensor
 from ray_tpu_torch.parallel.mesh import VirtualMesh, axis_index, axis_size
 from ray_tpu_torch.parallel.sharding import layer_shard
 
@@ -67,8 +67,10 @@ def _stage_stack(w, s: int, stages: int):
     """Stage s's ``[L/S, ...]`` part of a stacked weight. A DTensor must be
     split over ``pipeline`` (its local shard is this rank's stage); a plain
     tensor is cut, and only this stage's layers then get a gradient."""
-    if not isinstance(w, DTensor):
+    if not is_dtensor(w):
         return w.chunk(stages)[s]
+    from torch.distributed.tensor import Shard
+
     names = w.device_mesh.mesh_dim_names
     if not any(n == "pipeline" and isinstance(p, Shard) and p.dim == 0
                for n, p in zip(names, w.placements)):

@@ -16,8 +16,8 @@ from typing import Any, Optional, Sequence, Tuple
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from ray_tpu_torch.parallel._dtensor import is_dtensor
 from ray_tpu_torch.parallel.mesh import MODEL_AXES, TOKEN_AXES
 
 # logical axis -> mesh axis (or tuple of mesh axes, or None = replicate).
@@ -85,6 +85,8 @@ def spec_to_placements(spec: Sequence[Any],
     ``Replicate()`` elsewhere. A tensor dim split over several mesh dims
     (``("slice", "data", "fsdp")``) is split in mesh-dim order, outermost
     first, as the reference's tuple entries are."""
+    from torch.distributed.tensor import Replicate, Shard
+
     out = [Replicate() for _ in mesh_dim_names]
     for d, entry in enumerate(spec):
         axes = entry if isinstance(entry, tuple) else (entry,)
@@ -121,6 +123,8 @@ def local_shard(x: torch.Tensor, mesh: DeviceMesh, placements) -> torch.Tensor:
     """This rank's shard of the global ``x`` under ``placements``, by
     slicing (no communication): ``torch.chunk`` along each sharded dim, in
     mesh-dim order, as DTensor splits."""
+    from torch.distributed.tensor import Shard
+
     coord = mesh.get_coordinate()
     for mesh_dim, p in enumerate(placements):
         if isinstance(p, Shard):
@@ -132,9 +136,11 @@ def local_shard(x: torch.Tensor, mesh: DeviceMesh, placements) -> torch.Tensor:
     return x
 
 
-def distribute(x: torch.Tensor, mesh: DeviceMesh, placements) -> DTensor:
+def distribute(x: torch.Tensor, mesh: DeviceMesh, placements):
     """A global tensor, the same on every rank, as a DTensor: each rank keeps
     its own shard (``local_shard``), so nothing is sent."""
+    from torch.distributed.tensor import DTensor
+
     local = local_shard(x, mesh, placements).contiguous()
     return DTensor.from_local(local, mesh, placements, run_check=False,
                               shape=x.shape, stride=x.stride())
@@ -152,7 +158,7 @@ def with_logical_constraint(x, logical: Sequence[Optional[str]], rules=None,
     DTensor is redistributed to the placements of ``logical``; a plain
     tensor, or no mesh, passes through unchanged (the model code works on
     local shards, whose layout the rules already fix)."""
-    if not isinstance(x, DTensor):
+    if not is_dtensor(x):
         return x
     mesh = mesh or x.device_mesh
     return x.redistribute(mesh, logical_placements(mesh, logical, rules))
@@ -169,8 +175,10 @@ def gather(x, whole: Sequence[str] = (),
     over every other dim each rank's gradient is already its shard's whole
     gradient, and summing it there would count it once a rank. A plain
     tensor passes through."""
-    if not isinstance(x, DTensor):
+    if not is_dtensor(x):
         return x
+    from torch.distributed.tensor import Partial, Replicate
+
     names = x.device_mesh.mesh_dim_names
     target = [p if n in MODEL_AXES and n not in whole else Replicate()
               for n, p in zip(names, x.placements)]
@@ -188,8 +196,10 @@ def layer_shard(w, i: int, local=None):
     split over pipeline stages (``Shard(0)``) holds this stage's layers in
     ``local`` and ``i`` counts within them; the layer's DTensor is
     replicated over that dim (its gather sends nothing there)."""
-    if not isinstance(w, DTensor):
+    if not is_dtensor(w):
         return w[i] if local is None else local[i]
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
     placements = [(Replicate() if p.dim == 0 else Shard(p.dim - 1))
                   if isinstance(p, Shard) else p for p in w.placements]
     local = w.to_local() if local is None else local
