@@ -16,6 +16,14 @@ The same slot scheduler over the same device functions:
     chunk into pinned memory, and a CUDA event recorded after that copy says
     when the chunk is ready. Under ``serve_forever`` a fetcher thread waits
     on those events so the dispatch loop never blocks on a transfer.
+  - Device time is counted without a stall: a pair of CUDA timing events
+    around each prefill group and decode chunk, read by the fetcher once
+    the chunk's ``ready`` event has passed (``_DeviceClock``). The host
+    clock stamps each request's submission, admission and first token.
+    Profiler ranges (``models/ranges.py``) name the engine's phases
+    (``engine.prefill``, ``engine.decode``, ``engine.deliver``) and, in the
+    model code, each layer's ``attn`` and ``ffn`` and the ``head``; they
+    cost nothing without a profiler session.
 
 With a ``mesh`` (the reference's tensor-parallel engine,
 ``ray_tpu/models/engine.py:315-322``): each rank keeps its own heads, kv
@@ -61,6 +69,7 @@ from ray_tpu_torch.models.config import TransformerConfig
 from ray_tpu_torch.models.generate import (_attn_sum, _ffn, _final_logits,
                                            _gqa_attention, _prefill_hidden,
                                            sample)
+from ray_tpu_torch.models.ranges import profiled
 from ray_tpu_torch.models.transformer import (Params, embed_tokens, layer,
                                               param_logical_axes, qkv_proj,
                                               rms_norm)
@@ -152,15 +161,17 @@ def _decode_one(params: Params, cache: SlotCache, tokens,
         (kpos >= start[:, None, None, None, None])
     for i in range(cfg.n_layers):
         lp = layer(params, i)
-        h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
-        q, k, v = qkv_proj(h, lp, cfg, positions)
-        k_layer, v_layer = cache["k"][i], cache["v"][i]
-        _write_rows(k_layer, k, pos)
-        _write_rows(v_layer, v, pos)
-        o = _gqa_attention(q, k_layer, v_layer, mask)
-        x = x + _attn_sum(o, lp, cfg, mesh)
-        h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-        x = x + _ffn(h, lp, cfg, mesh)
+        with profiled("attn"):
+            h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+            q, k, v = qkv_proj(h, lp, cfg, positions)
+            k_layer, v_layer = cache["k"][i], cache["v"][i]
+            _write_rows(k_layer, k, pos)
+            _write_rows(v_layer, v, pos)
+            o = _gqa_attention(q, k_layer, v_layer, mask)
+            x = x + _attn_sum(o, lp, cfg, mesh)
+        with profiled("ffn"):
+            h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+            x = x + _ffn(h, lp, cfg, mesh)
     logits = _final_logits(params, x, cfg, mesh)[:, 0]  # [B, V]
     cache["pos"] = pos + 1
     return cache, logits
@@ -203,13 +214,55 @@ _FINISH_EOS = "eos"
 _FINISH_LENGTH = "length"
 
 
+class _DeviceClock:
+    """Device seconds of the engine's ops, counted without a stall. On CUDA
+    a pair of timing events, taken from a pool, brackets each op on the
+    stream; the pair is read only once a later event on that stream has
+    passed, so the op is done, and then goes back to the pool. On the CPU,
+    where ops run synchronously, the host clock times the call."""
+
+    def __init__(self, device: torch.device):
+        self._device = device if device.type == "cuda" else None
+        self._pool: List[tuple] = []
+
+    def start(self):
+        if self._device is None:
+            return time.perf_counter()
+        try:
+            pair = self._pool.pop()
+        except IndexError:
+            pair = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+        pair[0].record(torch.cuda.current_stream(self._device))
+        return pair
+
+    def stop(self, mark):
+        """-> the op's reading: seconds on the CPU, else ``mark``'s event
+        pair, for ``seconds`` once the op is done."""
+        if self._device is None:
+            return time.perf_counter() - mark
+        mark[1].record(torch.cuda.current_stream(self._device))
+        return mark
+
+    def seconds(self, reading) -> float:
+        if self._device is None:
+            return reading
+        start, end = reading
+        elapsed = start.elapsed_time(end) / 1e3
+        self._pool.append(reading)
+        return elapsed
+
+
 @dataclass
 class _Chunk:
     """One dispatched decode chunk: its tokens' host copy (pinned, filled
-    by a copy queued behind the chunk) and the event recorded after it."""
+    by a copy queued behind the chunk), the event recorded after it, and
+    the device-time readings ([(stats key, reading)]) of the chunk and of
+    the prefill groups dispatched before it, which are done when it is."""
     host: torch.Tensor
     ready: Optional[torch.cuda.Event]
     snapshot: list
+    readings: list
 
 
 def _chunk_ready(chunk: _Chunk) -> bool:
@@ -228,6 +281,9 @@ class _Request:
     stream_q: Optional[queue.Queue] = None
     finish_reason: Optional[str] = None
     error: Optional[BaseException] = None
+    # host clock (time.monotonic): submitted, admitted into a slot
+    t_submit: float = field(default_factory=time.monotonic)
+    t_admit: float = 0.0
 
     def emit(self, tok: int):
         self.tokens.append(tok)
@@ -330,11 +386,19 @@ class InferenceEngine:
         # against _die's drain (not _lock, which a whole step() holds)
         self._fatal: Optional[BaseException] = None
         self._death_lock = threading.Lock()
+        # counters of serving (warmup() counts nothing). Device seconds of
+        # prefill groups and decode chunks (_DeviceClock); on the host
+        # clock, the queue's wait summed at admission (one a prefill) and
+        # admission to first token delivered (first_tokens of them)
         self.stats = {"prefills": 0, "prefill_dispatches": 0,
                       "decode_steps": 0, "fetches": 0, "tokens_out": 0,
-                      "requests_done": 0, "fetch_wall_s": 0.0,
-                      "cap_stalls": 0, "dispatch_wall_s": 0.0}
-        self._at_cap = False
+                      "requests_done": 0, "dispatch_wall_s": 0.0,
+                      "prefill_device_s": 0.0, "decode_device_s": 0.0,
+                      "queue_wait_s": 0.0, "first_token_s": 0.0,
+                      "first_tokens": 0}
+        self._clock = _DeviceClock(self.device)
+        # prefill groups' readings, handed to the next decode chunk
+        self._prefill_readings: list = []
 
     # -------------------------------------------------------- submission
 
@@ -405,7 +469,10 @@ class InferenceEngine:
         """Dispatch ONE batched prefill for ``group`` = [(slot, req)]; the
         sampled first tokens join the device-side chain and reach the host
         in the next chunk's echo column."""
+        mark = self._clock.start()
         self._prefill([(slot, req.prompt) for slot, req in group])
+        self._prefill_readings.append(("prefill_device_s",
+                                       self._clock.stop(mark)))
         for slot, req in group:
             self._slot_req[slot] = req
         self.stats["prefills"] += len(group)
@@ -424,24 +491,26 @@ class InferenceEngine:
             toks[i, P - len(prompt):] = prompt
             slots[i] = slot
             starts[i] = P - len(prompt)
-        slots_dev = self._tensor(slots)
-        self.cache, first = prefill_slots(
-            self.params, self.cache, self._tensor(toks), slots_dev,
-            self._tensor(starts), self._rng, self.cfg, self.greedy,
-            self.temperature, self.mesh)
-        self._next_tok_dev[slots_dev] = first
+        with profiled("engine.prefill"):
+            slots_dev = self._tensor(slots)
+            self.cache, first = prefill_slots(
+                self.params, self.cache, self._tensor(toks), slots_dev,
+                self._tensor(starts), self._rng, self.cfg, self.greedy,
+                self.temperature, self.mesh)
+            self._next_tok_dev[slots_dev] = first
 
     def _decode(self, active_slots: List[int]) -> torch.Tensor:
         """The device op of one decode chunk over ``active_slots``; the
         last samples become the next chunk's inputs. -> [B, chunk+1]."""
         active = np.zeros(self.slots, bool)
         active[active_slots] = True
-        self.cache, toks = decode_slots(
-            self.params, self.cache, self._next_tok_dev,
-            self._tensor(active), self._rng, self.cfg, self.greedy,
-            self.temperature, self.eos_id, steps=self.decode_chunk,
-            mesh=self.mesh)
-        self._next_tok_dev = toks[:, -1].contiguous()
+        with profiled("engine.decode"):
+            self.cache, toks = decode_slots(
+                self.params, self.cache, self._next_tok_dev,
+                self._tensor(active), self._rng, self.cfg, self.greedy,
+                self.temperature, self.eos_id, steps=self.decode_chunk,
+                mesh=self.mesh)
+            self._next_tok_dev = toks[:, -1].contiguous()
         return toks
 
     _GROUP_SIZES = (4, 2, 1)  # prefill batch sizes, largest first
@@ -480,6 +549,9 @@ class InferenceEngine:
     def _emit_to(self, req: _Request, slot: int, tok: int):
         """Record one generated token; on an eos finish, reclaim the slot's
         remaining planned occupancy."""
+        if not req.tokens:
+            self.stats["first_token_s"] += time.monotonic() - req.t_admit
+            self.stats["first_tokens"] += 1
         req.emit(tok)
         self.stats["tokens_out"] += 1
         reason = None
@@ -535,6 +607,7 @@ class InferenceEngine:
     def _take_locked(self) -> List[tuple]:
         """Dequeue prompts into planned-free slots: [(slot, req)]."""
         take: List[tuple] = []
+        now = time.monotonic()
         for slot in range(self.slots):
             if self._slot_left[slot] > 0:
                 continue
@@ -545,6 +618,8 @@ class InferenceEngine:
                 req = self._queue.get_nowait()
             except queue.Empty:
                 break
+            req.t_admit = now
+            self.stats["queue_wait_s"] += now - req.t_submit
             take.append((slot, req))
         return take
 
@@ -585,12 +660,7 @@ class InferenceEngine:
             return []
         if self._fetcher is not None and \
                 len(self._inflight) >= self.max_inflight:
-            # count stall EPISODES, not the parked loop's wakeups
-            if not self._at_cap:
-                self.stats["cap_stalls"] += 1
-                self._at_cap = True
             return []  # dispatch-ahead cap: wait for the fetcher
-        self._at_cap = False
         return active_slots
 
     def _dispatch_locked(self, active_slots: List[int]) -> bool:
@@ -607,47 +677,53 @@ class InferenceEngine:
                              0 if new else 1, take))
             self._slot_left[slot] = max(
                 0, self._slot_left[slot] - (width + 1 if new else width))
+        mark = self._clock.start()
         toks = self._decode(active_slots)
-        self._inflight.append(self._queue_copy(toks, snapshot))
+        readings = self._prefill_readings
+        readings.append(("decode_device_s", self._clock.stop(mark)))
+        self._prefill_readings = []
+        self._inflight.append(self._queue_copy(toks, snapshot, readings))
         self.stats["decode_steps"] += width
         self.stats["dispatch_wall_s"] += time.perf_counter() - t0
         return True
 
-    def _queue_copy(self, toks, snapshot) -> _Chunk:
+    def _queue_copy(self, toks, snapshot, readings) -> _Chunk:
         """Queue the chunk's device->host copy behind it on the stream."""
         if toks.device.type != "cuda":
-            return _Chunk(toks, None, snapshot)
+            return _Chunk(toks, None, snapshot, readings)
         host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
         host.copy_(toks, non_blocking=True)
         ready = torch.cuda.Event()
         ready.record()
-        return _Chunk(host, ready, snapshot)
+        return _Chunk(host, ready, snapshot, readings)
 
     def _fetch_chunks(self, pending: List[_Chunk]) -> np.ndarray:
         """Wait for ``pending`` chunks' host copies; -> [B, n*(chunk+1)].
         Called outside the lock by the fetcher; inline mode calls it under
-        the lock."""
-        t0 = time.perf_counter()
+        the lock. Once a chunk is ready, its device-time readings are
+        done: they are counted here."""
         for c in pending:
             if c.ready is not None:
                 c.ready.synchronize()
+            for key, reading in c.readings:
+                self.stats[key] += self._clock.seconds(reading)
         parts = [c.host.numpy() for c in pending]
         big = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=1)
         self.stats["fetches"] += 1
-        self.stats["fetch_wall_s"] += time.perf_counter() - t0
         return big
 
     def _deliver_locked(self, big: np.ndarray, pending: List[_Chunk]):
         W = self.decode_chunk + 1
-        for i, chunk in enumerate(pending):
-            seg = big[:, i * W:(i + 1) * W]
-            for slot, req, from_col, take in chunk.snapshot:
-                if req.done.is_set():
-                    continue  # finished in an earlier chunk
-                for t in range(from_col, from_col + take):
-                    self._emit_to(req, slot, int(seg[slot, t]))
+        with profiled("engine.deliver"):
+            for i, chunk in enumerate(pending):
+                seg = big[:, i * W:(i + 1) * W]
+                for slot, req, from_col, take in chunk.snapshot:
                     if req.done.is_set():
-                        break  # rest of the row is frozen eos/junk
+                        continue  # finished in an earlier chunk
+                    for t in range(from_col, from_col + take):
+                        self._emit_to(req, slot, int(seg[slot, t]))
+                        if req.done.is_set():
+                            break  # rest of the row is frozen eos/junk
 
     # ---------------------------------------------------- background loop
 

@@ -13,6 +13,12 @@ and ``_final_logits`` with a mesh of its ``tensor`` (and ``expert``) axis:
 each rank holds its heads, kv heads, d_ff columns and vocabulary rows; the
 attention and FFN outputs are summed over the ranks (``reduce_from``) and
 the logits gathered whole before sampling.
+
+Each layer of ``_prefill_hidden`` (and of the engine's decode step) runs
+inside profiler ranges (``models/ranges.py``) ``attn`` (norm, q/k/v,
+cache write, attention, output projection) and ``ffn`` (norm and FFN, the
+MoE's router and expert batches included); ``_final_logits`` inside
+``head``. In a profile they split the device timeline by layer part.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 import torch.distributed as dist
 
 from ray_tpu_torch.models.config import TransformerConfig
+from ray_tpu_torch.models.ranges import profiled
 from ray_tpu_torch.models.transformer import (Params, attn_out, embed_tokens,
                                               ffn_block, layer, lm_head,
                                               qkv_proj, rms_norm)
@@ -85,12 +92,13 @@ def _final_logits(params, x, cfg, mesh=None):
     """Logits over the whole vocabulary: on a tensor mesh each rank's
     vocabulary rows, gathered over the ranks (every rank samples the
     same)."""
-    logits = lm_head(params, x, cfg)
-    for group in axis_groups(mesh, ("tensor",)):
-        every = [torch.empty_like(logits)
-                 for _ in range(dist.get_world_size(group))]
-        dist.all_gather(every, logits.contiguous(), group=group)
-        logits = torch.cat(every, dim=-1)
+    with profiled("head"):
+        logits = lm_head(params, x, cfg)
+        for group in axis_groups(mesh, ("tensor",)):
+            every = [torch.empty_like(logits)
+                     for _ in range(dist.get_world_size(group))]
+            dist.all_gather(every, logits.contiguous(), group=group)
+            logits = torch.cat(every, dim=-1)
     return logits
 
 
@@ -119,14 +127,16 @@ def _prefill_hidden(params: Params, tokens, cfg: TransformerConfig,
                        params["layers"]["wk"].shape[2])
     for i in range(cfg.n_layers):
         lp = layer(params, i)
-        h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
-        q, k, v = qkv_proj(h, lp, cfg, positions)
-        o = _gqa_attention(q, k, v, prompt_mask)
-        x = x + _attn_sum(o, lp, cfg, mesh)
-        h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-        x = x + _ffn(h, lp, cfg, mesh)
-        cache["k"][i, :, :P] = k
-        cache["v"][i, :, :P] = v
+        with profiled("attn"):
+            h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+            q, k, v = qkv_proj(h, lp, cfg, positions)
+            o = _gqa_attention(q, k, v, prompt_mask)
+            x = x + _attn_sum(o, lp, cfg, mesh)
+            cache["k"][i, :, :P] = k
+            cache["v"][i, :, :P] = v
+        with profiled("ffn"):
+            h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+            x = x + _ffn(h, lp, cfg, mesh)
     cache["pos"] = P
     return x, cache
 

@@ -26,6 +26,10 @@ claimed along the whole row: rank s offsets its places in each (row,
 expert) by the slots the lower ranks' chunks route there (one all-gather
 of [B, E] counts), C comes from the whole row's length, and the Switch
 aux's means are taken over every token axis.
+
+``moe_layer`` runs its routing (router, top-k, capacity places) inside a
+profiler range (``models/ranges.py``) ``moe.route`` and its expert
+batches inside ``moe.experts``, which split an FFN's time in a profile.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.distributed as dist
 
+from ray_tpu_torch.models.ranges import profiled
 from ray_tpu_torch.parallel.mesh import (TOKEN_AXES, VirtualMesh,
                                          axis_groups, axis_index, axis_size,
                                          copy_to, psum, region_sum)
@@ -219,20 +224,22 @@ def moe_layer(h, lp, cfg, mesh=None):
     n_seq = axis_size(mesh, "sequence")
     C = capacity(T * n_seq, cfg)
     groups = axis_groups(mesh, ("expert", "tensor"))
-    h = copy_to(h, groups)
-    probs, top_p, top_i = route(h, lps[0]["router"], k)
-    offset = None
-    if n_seq > 1:
-        counts = [torch.empty((B, E), dtype=torch.long, device=h.device)
-                  for _ in range(n_seq)]
-        dist.all_gather(counts, slot_counts(top_i, E),
-                        group=mesh.get_group("sequence"))
-        offset = sum(counts[:axis_index(mesh, "sequence")],
-                     torch.zeros_like(counts[0]))
-    place, kept = assign_slots(top_i, E, C, offset)
+    with profiled("moe.route"):
+        h = copy_to(h, groups)
+        probs, top_p, top_i = route(h, lps[0]["router"], k)
+        offset = None
+        if n_seq > 1:
+            counts = [torch.empty((B, E), dtype=torch.long, device=h.device)
+                      for _ in range(n_seq)]
+            dist.all_gather(counts, slot_counts(top_i, E),
+                            group=mesh.get_group("sequence"))
+            offset = sum(counts[:axis_index(mesh, "sequence")],
+                         torch.zeros_like(counts[0]))
+        place, kept = assign_slots(top_i, E, C, offset)
     first = axis_index(mesh, "expert") * (E // axis_size(mesh, "expert"))
-    y = region_sum([expert_partial(h, top_p, top_i, place, kept, one, C,
-                                   first) for one in lps], groups)
+    with profiled("moe.experts"):
+        y = region_sum([expert_partial(h, top_p, top_i, place, kept, one, C,
+                                       first) for one in lps], groups)
     return y.to(h.dtype), load_balance(probs, top_i, E, mesh), top_i, kept
 
 

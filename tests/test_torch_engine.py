@@ -304,3 +304,82 @@ def test_prefill_slot_writes_one_row(model):
     assert cache["k"][:, 2, 3:8].abs().sum() > 0
     assert cache["k"][:, :2].abs().sum() == 0 and \
         cache["k"][:, 2, 8:].abs().sum() == 0
+
+
+_SERVED = [[3, 1, 4], [1, 5, 9, 2], [6, 5], [3, 5, 8, 9, 7]]
+
+
+@pytest.mark.parametrize("mode", ["step", "serve_forever"])
+def test_counters_split_device_time_and_first_token(model, mode):
+    """The engine's counters once more requests than slots are served:
+    device seconds of prefill and decode, the queue's wait and admission
+    to first token, one first token a prefill; warmup() counts nothing."""
+    eng = _engine(model, slots=2, max_prompt_len=16, max_new_tokens=6,
+                  decode_chunk=2, max_inflight=2).warmup()
+    assert all(v == 0 for v in eng.stats.values())
+    if mode == "serve_forever":
+        eng.serve_forever()
+        try:
+            reqs = [eng.submit(p) for p in _SERVED]
+            for r in reqs:
+                assert r.done.wait(120)
+        finally:
+            eng.shutdown()
+    else:
+        reqs = [eng.submit(p) for p in _SERVED]
+        _drain(eng, reqs, 100)
+    assert all(r.done.is_set() and r.error is None for r in reqs)
+    st = eng.stats
+    for key in ("prefill_device_s", "decode_device_s", "queue_wait_s",
+                "first_token_s"):
+        assert st[key] > 0, key
+    assert st["first_tokens"] == st["prefills"] == len(_SERVED)
+    assert "fetch_wall_s" not in st and "cap_stalls" not in st
+
+
+def _within(inner, outer) -> bool:
+    return (inner.thread == outer.thread
+            and outer.time_range.start <= inner.time_range.start
+            and inner.time_range.end <= outer.time_range.end)
+
+
+@pytest.mark.parametrize("moe_experts", [0, 4])
+def test_profile_names_engine_phases_and_layer_parts(model, moe_experts):
+    """One step() under torch.profiler: the engine's phase ranges, and
+    inside the decode chunk one ``attn`` and one ``ffn`` a layer a
+    substep and one ``head`` a substep (the MoE's routing and expert
+    batches inside each ``ffn``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.models.ranges import profiled
+    from ray_tpu_torch.models.transformer import init_params
+
+    ct, pt = model[1], model[2]
+    if moe_experts:
+        ct = tcfg.tiny_config(moe_experts=moe_experts)
+        pt = init_params(torch.Generator().manual_seed(0), ct, device="cpu")
+    eng = InferenceEngine(pt, ct, device="cpu", slots=2, max_prompt_len=16,
+                          max_new_tokens=6, decode_chunk=3)
+    eng.submit([3, 1, 4])
+    eng.submit([2, 7])
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        eng.step()
+    events = list(prof.events())
+
+    def named(name, outer=None):
+        return [e for e in events if e.name == name
+                and (outer is None or _within(e, outer))]
+
+    for name in ("engine.prefill", "engine.deliver"):
+        assert len(named(name)) == 1, name
+    # without a profiler session a range is the shared no-op
+    assert profiled("attn") is profiled("ffn")
+    (decode,) = named("engine.decode")
+    layer_steps = ct.n_layers * eng.decode_chunk
+    assert len(named("attn", decode)) == layer_steps
+    assert len(named("ffn", decode)) == layer_steps
+    assert len(named("head", decode)) == eng.decode_chunk
+    routes = [e for f in named("ffn", decode) for e in named("moe.route", f)]
+    experts = [e for f in named("ffn", decode)
+               for e in named("moe.experts", f)]
+    assert len(routes) == len(experts) == (layer_steps if moe_experts else 0)
